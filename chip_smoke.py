@@ -1,0 +1,536 @@
+#!/usr/bin/env python3
+"""Smoke run of imagestitch_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line (any failure exits non-zero and no
+result line is printed):
+
+1. device     — card name, `nvidia-smi` name and power limit.
+2. build      — nvcc builds the kernels of imagestitch_tpu_torch/csrc into
+                build/ (seconds, ptxas register report).
+3. detect     — the detector-maps kernel against its plain version at the
+                five 1080p pyramid level shapes, B=2: FAST/NMS equal
+                everywhere, Harris within 1e-4·max|Harris|, blur within
+                1e-3 intensity.
+4. warp       — the warp kernel against its plain version: the main-path
+                geometry (cylindrical, N=2, 1080x1920x3 into 1458x4032),
+                spherical and plane at 480x640, and a mixed-size pair.
+                Masks agree except within 1e-3 px of the validity boundary;
+                values agree within 1e-2 where both are valid.
+5. reference  — a small pair (192x256) stitched on the card and on the CPU
+                (the plain versions) with the same RANSAC draws agree.
+6. main_path  — stitch_pair with the default PipelineConfig on the 1080p
+                rotation pair and the 1080p translation pair: h_valid,
+                plausible focal / warped offset / pano width, and the
+                kernels' launch counts (detector maps 10, warp 1 per
+                stitch). Then the median wall time of warm stitches.
+7. stages     — wall ms of each stage of the 1080p rotation stitch and the
+                device's busy share of one stitch (torch.profiler).
+8. kernels    — one line {"kernels": [...]}: launches on the main path,
+                error against the plain version, kernel / plain / library
+                ms and the least time the card could take (bound_ms).
+
+Then the card's name and power limit, and the last line
+{"ok": true, "device": {...}}. Needs one card; builds everything it runs.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+# detector-maps float32 operations per pixel: FAST 16 differences + 16
+# nine-long windows x (8 min + 8 max) + 16 x 7 threshold/select/max (384),
+# NMS 11, Harris 2 gradients + 3 products + 3 x 12 box adds + 8 (49),
+# blur 2 x (7 mul + 6 add) (26)
+DETECT_OPS_PER_PX = 384 + 11 + 49 + 26
+# warp float32 operations per canvas pixel and image: 2 divides by scale,
+# 2 sincos (~20 each), 15 for the 3x3 projection, 2 divides, 8 compares,
+# 3 channels x 6 for the bilinear blend
+WARP_OPS_PER_PX = 2 + 40 + 15 + 2 + 8 + 18
+N_TIMED = 20
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise PhaseError(msg)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
+
+
+def cuda_ms(fn, iters: int = N_TIMED, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms, by CUDA events around `iters`
+    back-to-back calls after a warm-up."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def bound_ms(nbytes: float, ops: float):
+    tb = nbytes / HBM_BYTES_PER_S
+    to = ops / FP32_FLOPS
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def phase_device(state):
+    import torch
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
+    import imagestitch_tpu_torch  # noqa: F401  (fails on a lone script)
+    state["name"] = torch.cuda.get_device_name(0)
+    state["smi"] = smi_line()
+    emit({"phase": "device", "name": state["name"], "smi": state["smi"],
+          "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+
+def phase_build(state):
+    from imagestitch_tpu_torch.ops import cuda_build
+    t0 = time.perf_counter()
+    cuda_build.load_library()
+    ptxas = [ln.strip() for ln in cuda_build.build_info["log"].splitlines()
+             if "Used" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "built": cuda_build.build_info["built"],
+          "path": os.path.relpath(cuda_build.build_info["path"], HERE),
+          "ptxas": ptxas})
+
+
+def _rotation_pair_1080():
+    from imagestitch_tpu_torch.utils.io import synthetic_rotation_pair
+    return synthetic_rotation_pair(1080, 1920)
+
+
+def phase_detect(state):
+    import torch
+    from imagestitch_tpu_torch.ops.cuda_detect import (detect_maps_cuda,
+                                                       detect_maps_plain)
+    from imagestitch_tpu_torch.ops.image import rgb_to_gray
+    from imagestitch_tpu_torch.ops.pyramid import build_pyramid
+    img1, img2, _, _ = state["rot"]
+    rgb = torch.stack([torch.as_tensor(img1), torch.as_tensor(img2)])
+    gray = rgb_to_gray(rgb.cuda().float())
+    levels = [lv.contiguous() for lv in build_pyramid(gray, 5, 1.3)]
+    worst = {"nms": 0.0, "harris_rel": 0.0, "blur": 0.0}
+    max_abs = 0.0
+    for lv in levels:
+        k = detect_maps_cuda(lv, 20.0)
+        p = detect_maps_plain(lv, 20.0)
+        torch.cuda.synchronize()
+        check(torch.equal(k[0], p[0]),
+              f"FAST/NMS differs at {tuple(lv.shape)}: "
+              f"{int((k[0] != p[0]).sum())} pixels")
+        h_err = float((k[1] - p[1]).abs().max())
+        h_rel = h_err / max(float(p[1].abs().max()), 1e-30)
+        b_err = float((k[2] - p[2]).abs().max())
+        check(h_rel <= 1e-4, f"Harris rel err {h_rel} at {tuple(lv.shape)}")
+        check(b_err <= 1e-3, f"blur err {b_err} at {tuple(lv.shape)}")
+        worst["harris_rel"] = max(worst["harris_rel"], h_rel)
+        worst["blur"] = max(worst["blur"], b_err)
+        max_abs = max(max_abs, b_err, h_err)
+
+    # main-path work per stitch: 5 levels x 2 images, one launch each
+    singles = [lv[b:b + 1].contiguous() for lv in levels for b in range(2)]
+    ms = cuda_ms(lambda: [detect_maps_cuda(x, 20.0) for x in singles])
+    plain = cuda_ms(lambda: [detect_maps_plain(x, 20.0) for x in singles],
+                    iters=5)
+    px = sum(x.numel() for x in singles)
+    b_ms, b_by = bound_ms(16.0 * px, DETECT_OPS_PER_PX * px)
+    state["k1"] = {
+        "name": "detect_maps", "route": "cuda",
+        "source": "imagestitch_tpu_torch/csrc/detect_maps.cu",
+        "replaces": "imagestitch_tpu/ops/pallas_detect.py:136",
+        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    emit({"phase": "detect", "shapes": [list(lv.shape) for lv in levels],
+          "nms_equal": True, **worst, "ms_per_stitch": ms,
+          "plain_ms_per_stitch": plain, "bound_ms": b_ms})
+
+
+def _near_boundary(k_rinvs, scale, corner, roi_uvs, canvas_hw, kind, sizes):
+    """Pixels whose float64 source coordinate lies within 1e-3 px of the
+    in-image boundary (or whose ray is near z = 0): float32 rounding may
+    put them on either side."""
+    import math
+    import torch
+    Hc, Wc = canvas_hw
+    dev = k_rinvs.device
+    out = []
+    s = float(scale)
+    for i in range(k_rinvs.shape[0]):
+        M = k_rinvs[i].double()
+        u = (torch.arange(Wc, dtype=torch.float64, device=dev)
+             + float(corner[0]))[None, :].expand(Hc, Wc) / s
+        v = (torch.arange(Hc, dtype=torch.float64, device=dev)
+             + float(corner[1]))[:, None].expand(Hc, Wc) / s
+        if kind == "cylindrical":
+            X, Y, Z = torch.sin(u), v, torch.cos(u)
+        elif kind == "spherical":
+            sv = torch.sin(math.pi - v)
+            X, Y, Z = sv * torch.sin(u), torch.cos(math.pi - v), \
+                sv * torch.cos(u)
+        else:
+            X, Y, Z = u, v, torch.ones_like(u)
+        px = M[0, 0] * X + M[0, 1] * Y + M[0, 2] * Z
+        py = M[1, 0] * X + M[1, 1] * Y + M[1, 2] * Z
+        pz = M[2, 0] * X + M[2, 1] * Y + M[2, 2] * Z
+        xs, ys = px / pz, py / pz
+        h, w = sizes[i]
+        d = torch.stack([xs.abs(), (xs - (w - 1)).abs(), ys.abs(),
+                         (ys - (h - 1)).abs()]).amin(0)
+        out.append((d < 1e-3) | (pz.abs() < 1e-6))
+    return torch.stack(out)
+
+
+def _compare_warp(case, imgs, k_rinvs, scale, corner, roi_uvs, canvas_hw,
+                  kind, src_sizes=None):
+    import torch
+    from imagestitch_tpu_torch.ops.cuda_warp import warp_batched_cuda
+    from imagestitch_tpu_torch.warp.warper import warp_batched_plain
+    n = imgs.shape[0]
+    corners = corner.expand(n, 2)
+    ok_k = warp_batched_cuda(imgs, k_rinvs, scale, corners, roi_uvs,
+                             canvas_hw, kind, src_sizes)
+    ok_p = warp_batched_plain(imgs, k_rinvs, scale, corners, roi_uvs,
+                              canvas_hw, kind, src_sizes)
+    torch.cuda.synchronize()
+    (out_k, val_k), (out_p, val_p) = ok_k, ok_p
+    sizes = ([tuple(imgs.shape[1:3])] * n if src_sizes is None
+             else [tuple(int(x) for x in s) for s in src_sizes])
+    near = _near_boundary(k_rinvs, scale, corner, roi_uvs, canvas_hw, kind,
+                          sizes)
+    mism = val_k != val_p
+    bad = int((mism & ~near).sum())
+    both = val_k & val_p
+    err = float((out_k - out_p).abs()[both].max()) if bool(both.any()) \
+        else 0.0
+    check(bad == 0, f"{case}: {bad} mask pixels differ away from the "
+          "validity boundary")
+    check(err <= 1e-2, f"{case}: value error {err} where both are valid")
+    check(bool(val_k.any()), f"{case}: nothing valid")
+    return {"case": case, "kind": kind, "canvas": list(canvas_hw),
+            "valid_px": int(val_k.sum()), "mask_mismatch_near_boundary":
+            int(mism.sum()), "max_abs_err": err}
+
+
+def phase_warp(state):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from imagestitch_tpu_torch.config import PipelineConfig, WarpConfig
+    from imagestitch_tpu_torch.ops.cuda_warp import warp_batched_cuda
+    from imagestitch_tpu_torch.pipeline import (
+        _pano_canvas_shape, register_pair, set_full_precision, warp_inputs,
+        warp_scale)
+    from imagestitch_tpu_torch.utils.io import synthetic_rotation_pair
+    from imagestitch_tpu_torch.warp.projectors import PROJECTORS
+    from imagestitch_tpu_torch.warp.warper import warp_batched_plain
+
+    set_full_precision()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    cfg = PipelineConfig()
+    results = []
+
+    # main-path geometry: cameras from a stitch of the 1080p rotation pair
+    img1, img2, _, _ = state["rot"]
+    a = torch.as_tensor(img1).cuda().float()
+    b = torch.as_tensor(img2).cuda().float()
+    _, _, _, cams = register_pair(a, b, cfg, generator=gen)
+    scale = warp_scale(cams)
+    canvas = _pano_canvas_shape((1080, 1920), 2, cfg)
+    k_rinvs, corner, roi_uvs, _ = warp_inputs(cams, scale, (1080, 1920), 2,
+                                              canvas, cfg)
+    imgs = torch.stack([a, b]).contiguous()
+    results.append(_compare_warp("main_1080p", imgs, k_rinvs, scale, corner,
+                                 roi_uvs, canvas, "cylindrical"))
+    main = (imgs, k_rinvs, scale, corner.expand(2, 2), roi_uvs, canvas)
+
+    # spherical and plane at 480x640, cameras from a stitch of that pair
+    s1, s2, _, _ = synthetic_rotation_pair(480, 640)
+    a = torch.as_tensor(s1).cuda().float()
+    b = torch.as_tensor(s2).cuda().float()
+    _, _, _, cams = register_pair(a, b, cfg, generator=gen)
+    scale = warp_scale(cams)
+    imgs_s = torch.stack([a, b]).contiguous()
+    for kind in ("spherical", "plane"):
+        cfg_k = cfg.replace(warp=WarpConfig(kind=kind))
+        cv = _pano_canvas_shape((480, 640), 2, cfg_k)
+        kr, cn, ru, _ = warp_inputs(cams, scale, (480, 640), 2, cv, cfg_k)
+        results.append(_compare_warp(f"{kind}_480p", imgs_s, kr, scale, cn,
+                                     ru, cv, kind))
+
+    # mixed sizes: the second image cut to 440x600, edge-padded back
+    sizes = np.asarray([[480, 640], [440, 600]], np.int32)
+    b_small = b[:440, :600]
+    b_pad = F.pad(b_small.permute(2, 0, 1)[None], (0, 40, 0, 40),
+                  mode="replicate")[0].permute(1, 2, 0)
+    imgs_m = torch.stack([a, b_pad]).contiguous()
+    cv = _pano_canvas_shape((480, 640), 2, cfg)
+    kr, cn, ru, _ = warp_inputs(cams, scale, (480, 640), 2, cv, cfg, sizes)
+    results.append(_compare_warp("mixed_sizes", imgs_m, kr, scale, cn, ru,
+                                 cv, "cylindrical", sizes))
+
+    # timing at the main-path shapes
+    imgs, k_rinvs, scale, corners, roi_uvs, canvas = main
+    ms = cuda_ms(lambda: warp_batched_cuda(imgs, k_rinvs, scale, corners,
+                                           roi_uvs, canvas, "cylindrical"))
+    plain = cuda_ms(lambda: warp_batched_plain(
+        imgs, k_rinvs, scale, corners, roi_uvs, canvas, "cylindrical"),
+        iters=5)
+    # library yardstick: grid_sample on precomputed maps (timed only)
+    grids = []
+    Hc, Wc = canvas
+    for i in range(2):
+        proj = PROJECTORS["cylindrical"].from_backward(k_rinvs[i], scale)
+        u = (torch.arange(Wc, device="cuda", dtype=torch.float32)
+             + corners[i, 0].float())[None, :].expand(Hc, Wc)
+        v = (torch.arange(Hc, device="cuda", dtype=torch.float32)
+             + corners[i, 1].float())[:, None].expand(Hc, Wc)
+        xm, ym, _ = proj.backward(u, v)
+        grids.append(torch.stack([xm / (1920 - 1) * 2 - 1,
+                                  ym / (1080 - 1) * 2 - 1], dim=-1))
+    grid = torch.stack(grids).contiguous()
+    src_cf = imgs.permute(0, 3, 1, 2).contiguous()
+    lib = cuda_ms(lambda: F.grid_sample(src_cf, grid, mode="bilinear",
+                                        padding_mode="zeros",
+                                        align_corners=True))
+    nbytes = imgs.numel() * 4 + 2 * Hc * Wc * (3 * 4 + 1)
+    b_ms, b_by = bound_ms(nbytes, WARP_OPS_PER_PX * 2 * Hc * Wc)
+    state["k2"] = {
+        "name": "warp_batched", "route": "cuda",
+        "source": "imagestitch_tpu_torch/csrc/warp.cu",
+        "replaces": "imagestitch_tpu/ops/pallas_warp.py:426",
+        "max_abs_err": max(r["max_abs_err"] for r in results),
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib}
+    emit({"phase": "warp", "cases": results, "ms": ms, "plain_ms": plain,
+          "library_ms": lib, "bound_ms": b_ms})
+
+
+def phase_reference(state):
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import stitch_pair
+    from imagestitch_tpu_torch.utils.io import synthetic_rotation_pair
+    img1, img2, _, _ = synthetic_rotation_pair(192, 256)
+    g = torch.Generator().manual_seed(1)
+    draws = (torch.rand((2048, 4), generator=g),
+             torch.rand((256, 4), generator=g))
+    pc, mc = stitch_pair(img1, img2, seed=0, device="cuda", draws=draws)
+    pp, mp = stitch_pair(img1, img2, seed=0, device="cpu", draws=draws)
+    check(mc["h_valid"] and mp["h_valid"], "h_valid false on the small pair")
+    rel = abs(mc["focal"] - mp["focal"]) / mp["focal"]
+    check(rel < 1e-3, f"focal card {mc['focal']} vs CPU {mp['focal']}")
+    check(pc.shape == pp.shape, f"pano {pc.shape} vs CPU {pp.shape}")
+    diff = np.abs(pc.astype(np.float64) - pp.astype(np.float64))
+    check(diff.mean() < 1.0, f"pano mean abs diff {diff.mean()}")
+    emit({"phase": "reference", "shape": list(pc.shape),
+          "focal_card": mc["focal"], "focal_cpu": mp["focal"],
+          "kpts": [mc["kpts1"], mc["kpts2"], mp["kpts1"], mp["kpts2"]],
+          "inliers": [mc["num_inliers"], mp["num_inliers"]],
+          "pano_mean_abs_diff": float(diff.mean())})
+
+
+def phase_main_path(state):
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import stitch_pair
+    from imagestitch_tpu_torch.ops import cuda_detect, cuda_warp
+    from imagestitch_tpu_torch.utils.io import synthetic_pair
+    img1, img2, _, f_true = state["rot"]
+    t1, t2, shift = synthetic_pair(1080, 1920)
+    pairs = [("rotation", img1, img2), ("translation", t1, t2)]
+
+    cuda_detect.launch_count = 0
+    cuda_warp.launch_count = 0
+    results = {name: stitch_pair(a, b) for name, a, b in pairs}
+    torch.cuda.synchronize()
+    launches = {"detect_maps": cuda_detect.launch_count,
+                "warp_batched": cuda_warp.launch_count}
+    check(launches["detect_maps"] == 10 * len(pairs),
+          f"detector-maps kernel launches {launches['detect_maps']}")
+    check(launches["warp_batched"] == len(pairs),
+          f"warp kernel launches {launches['warp_batched']}")
+    state["k1"]["launches"] = launches["detect_maps"]
+    state["k2"]["launches"] = launches["warp_batched"]
+
+    summary = {}
+    for name, (pano, m) in results.items():
+        check(m["h_valid"], f"{name}: h_valid false")
+        check(pano.dtype == np.uint8 and pano.ndim == 3, f"{name}: pano")
+        check(pano.shape[1] > 1920, f"{name}: pano width {pano.shape[1]}")
+        check(pano.std() > 20, f"{name}: flat pano")
+        roi = np.asarray(m["roi_uv"])
+        du = 0.5 * ((roi[1, 0] + roi[1, 2]) - (roi[0, 0] + roi[0, 2]))
+        summary[name] = {"pano": list(pano.shape), "focal": m["focal"],
+                         "kpts": [m["kpts1"], m["kpts2"]],
+                         "matches": m["num_matches"],
+                         "inliers": m["num_inliers"], "warped_du": du}
+    rot = summary["rotation"]
+    check(abs(rot["focal"] - f_true) / f_true < 0.05,
+          f"rotation focal {rot['focal']} vs {f_true}")
+    # the views are 10 degrees of yaw apart: on the cylinder their centres
+    # lie focal x 10° apart (the sign follows the rotation's direction)
+    du_true = f_true * np.deg2rad(10.0)
+    check(abs(abs(rot["warped_du"]) - du_true) < 0.1 * du_true,
+          f"rotation warped offset {rot['warped_du']} vs {du_true}")
+    tw = summary["translation"]["pano"][1]
+    check(abs(tw - (1920 + shift)) < 0.1 * (1920 + shift),
+          f"translation pano width {tw} vs {1920 + shift}")
+
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stitch_pair(img1, img2)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    walls.sort()
+    emit({"phase": "main_path", "launches": launches, "pairs": summary,
+          "wall_ms_median": walls[len(walls) // 2], "wall_ms": walls,
+          "card": state["name"], "smi": state["smi"]})
+
+
+def phase_stages(state):
+    """Wall time of each stage of the 1080p rotation stitch (synchronized
+    between stages, median of 3 warm runs), and the device's busy share of
+    one stitch from a torch.profiler trace."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import pipeline as P
+    from imagestitch_tpu_torch.features import detect as detect_features
+    from imagestitch_tpu_torch.matching.matcher import match_pair
+    from imagestitch_tpu_torch.ops.image import rgb_to_gray
+
+    img1, img2, _, _ = state["rot"]
+    cfg = P.PipelineConfig()
+
+    def one(marks):
+        def mark(name):
+            torch.cuda.synchronize()
+            marks.append((name, time.perf_counter()))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        mark("start")
+        a = torch.as_tensor(img1, device="cuda").float()
+        b = torch.as_tensor(img2, device="cuda").float()
+        mark("upload")
+        f1 = detect_features(rgb_to_gray(a), cfg.detector)
+        f2 = detect_features(rgb_to_gray(b), cfg.detector)
+        mark("detect")
+        mi = match_pair(f1, f2, 0, 1, cfg.matcher, cfg.ransac,
+                        generator=gen)
+        mark("match_ransac")
+        sizes = torch.tensor([[1080, 1920]] * 2, dtype=torch.int32,
+                             device="cuda")
+        cams = P.estimate_cameras(mi.H[None], mi.h_valid[None], sizes)
+        pairs = mi.pairs.long()
+        cams = P.bundle_adjust(
+            cams, f1.xy[pairs[:, 0]][None], f2.xy[pairs[:, 1]][None],
+            (mi.inliers & mi.valid)[None],
+            torch.zeros(1, dtype=torch.int64, device="cuda"),
+            torch.ones(1, dtype=torch.int64, device="cuda"),
+            (mi.confidence > 1.0)[None], cfg.camera.ba_iters)
+        mark("cameras_ba")
+        scale = P.warp_scale(cams)
+        canvas = P._pano_canvas_shape((1080, 1920), 2, cfg)
+        warped, masks, _, _, _ = P._warp_all_shared(
+            torch.stack([a, b]), cams, scale, canvas, cfg)
+        mark("warp")
+        warped = P._apply_exposure(warped, masks, cfg)
+        mark("exposure")
+        pano, valid = P._seam_and_blend(warped, masks, cfg, 1920, 1080)
+        mark("seam_blend")
+        P._crop_valid(pano.cpu().numpy(), valid.cpu().numpy())
+        mark("readback_crop")
+
+    runs = []
+    for _ in range(4):
+        marks = []
+        one(marks)
+        runs.append({marks[i][0]: (marks[i][1] - marks[i - 1][1]) * 1e3
+                     for i in range(1, len(marks))})
+    runs = runs[1:]
+    stages = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+
+    busy = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one([])
+            wall = (time.perf_counter() - t0) * 1e3
+        evs = [e for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0) > 0]
+        dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+        top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+        busy = {"wall_ms": wall, "device_ms": dev_ms,
+                "busy_share": dev_ms / wall,
+                "top": [[e.key[:60], e.self_device_time_total / 1e3,
+                         e.count] for e in top]}
+    except Exception as e:      # the trace is a report, not a check
+        busy = {"not_measured": repr(e)[:200]}
+    emit({"phase": "stages", "ms": stages, "total_ms": sum(stages.values()),
+          "profile": busy})
+
+
+def main() -> int:
+    state = {}
+    phases = [("device", phase_device), ("build", phase_build),
+              ("detect", phase_detect), ("warp", phase_warp),
+              ("reference", phase_reference), ("main_path", phase_main_path),
+              ("stages", phase_stages)]
+    for name, fn in phases:
+        try:
+            if name == "detect":
+                state["rot"] = _rotation_pair_1080()
+            fn(state)
+        except Exception as e:          # any failure ends the run, non-zero
+            traceback.print_exc()
+            print(f"chip_smoke: phase {name} failed: {e}", file=sys.stderr)
+            return 1
+    import torch
+    emit({"kernels": [state["k1"], state["k2"]]})
+    print(state["smi"], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

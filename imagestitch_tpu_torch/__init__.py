@@ -1,0 +1,41 @@
+"""imagestitch_tpu_torch — the 2-image panorama pipeline of
+`imagestitch_tpu` in PyTorch, for an NVIDIA H100.
+
+Same stages, layouts and configuration as the JAX package; its two TPU
+kernels are hand-written CUDA kernels here (`ops.cuda_detect`,
+`ops.cuda_warp`, sources in `csrc/`), built with nvcc at first use. The
+entry points run on the CUDA card unless the caller names another device
+(the CPU runs every kernel's plain version).
+
+High-level API: `imagestitch_tpu_torch.stitch_pair(img1, img2)`.
+"""
+
+from imagestitch_tpu_torch.config import (
+    BlendConfig,
+    CameraConfig,
+    DetectorConfig,
+    ExposureConfig,
+    MatcherConfig,
+    PipelineConfig,
+    RansacConfig,
+    SeamConfig,
+    WarpConfig,
+)
+from imagestitch_tpu_torch.pipeline import stitch_pair
+from imagestitch_tpu_torch.types import CameraParams, ImageFeatures, MatchesInfo
+
+__all__ = [
+    "BlendConfig",
+    "CameraConfig",
+    "CameraParams",
+    "DetectorConfig",
+    "ExposureConfig",
+    "ImageFeatures",
+    "MatcherConfig",
+    "MatchesInfo",
+    "PipelineConfig",
+    "RansacConfig",
+    "SeamConfig",
+    "WarpConfig",
+    "stitch_pair",
+]

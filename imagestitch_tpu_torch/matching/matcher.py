@@ -1,0 +1,130 @@
+"""Pairwise matching + per-pair homography (`imagestitch_tpu.matching.
+matcher`, homography motion): exact Hamming 2-NN in both directions with
+Lowe's ratio test, mutual-duplicate suppression, compaction to
+`max_matches` by ascending distance, center-normalized RANSAC, Brown–Lowe
+confidence and the second RANSAC pass on the inliers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from imagestitch_tpu_torch.config import MatcherConfig, RansacConfig
+from imagestitch_tpu_torch.features.orb import top_k_stable
+from imagestitch_tpu_torch.geometry.ransac import find_homography
+from imagestitch_tpu_torch.matching.hamming import hamming_distance_matrix
+from imagestitch_tpu_torch.types import ImageFeatures, MatchesInfo
+
+BIG = float(np.float32(3.0e38))
+REFIT_HYPOTHESES = 256
+
+
+def _two_nn(D: torch.Tensor, ratio_keep: torch.Tensor):
+    """Row-wise 2-NN with the ratio test over (N, M) distances (BIG at
+    invalid entries). Returns (best_j, best_d, keep)."""
+    if D.shape[1] < 2:
+        D = torch.cat([D, D.new_full((D.shape[0], 2 - D.shape[1]), BIG)], 1)
+    d0 = D.amin(dim=1)
+    best_j = torch.argmin(D, dim=1)                     # first minimum
+    cols = torch.arange(D.shape[1], device=D.device)[None, :]
+    d1 = torch.where(cols == best_j[:, None], torch.full_like(D, BIG),
+                     D).amin(dim=1)
+    keep = (d0 < ratio_keep * d1) & (d0 < BIG)
+    return best_j, d0, keep
+
+
+def match_pair_descriptors(f1: ImageFeatures, f2: ImageFeatures,
+                           cfg: MatcherConfig = MatcherConfig()):
+    """Bidirectional ratio-tested matches. Returns (pairs (M, 2) int32,
+    dist (M,) float32, valid (M,) bool), padded to cfg.max_matches, valid
+    first by ascending distance (ties by ascending candidate index)."""
+    dev = f1.xy.device
+    N = f1.capacity
+    M = f2.capacity
+    if f1.descriptors.dtype.is_floating_point:
+        raise NotImplementedError(
+            "float (SIFT) descriptor matching is not ported yet "
+            "(ROADMAP Queue A, item 14)")
+    D = hamming_distance_matrix(f1.descriptors, f2.descriptors)
+    D = torch.where(f1.valid[:, None] & f2.valid[None, :], D,
+                    torch.full_like(D, BIG))
+    ratio_keep = torch.tensor(1.0 - cfg.match_conf, dtype=torch.float32,
+                              device=dev)
+    fj, fd, fk = _two_nn(D, ratio_keep)
+    bj, bd, bk = _two_nn(D.T, ratio_keep)
+    # a backward match (bj[j], j) duplicates a kept forward match (i, j)
+    dup = fk[bj] & (fj[bj] == torch.arange(M, device=dev))
+    bk = bk & ~dup
+
+    pairs = torch.cat([
+        torch.stack([torch.arange(N, device=dev), fj], dim=1),
+        torch.stack([bj, torch.arange(M, device=dev)], dim=1),
+    ]).to(torch.int32)
+    dist = torch.cat([fd, bd])
+    valid = torch.cat([fk, bk])
+    if pairs.shape[0] < cfg.max_matches:
+        deficit = cfg.max_matches - pairs.shape[0]
+        pairs = torch.cat([pairs, pairs.new_zeros((deficit, 2))])
+        dist = torch.cat([dist, dist.new_full((deficit,), BIG)])
+        valid = torch.cat([valid, valid.new_zeros(deficit)])
+    keymat = torch.where(valid, -dist, torch.full_like(dist, -BIG))
+    _, order = top_k_stable(keymat, cfg.max_matches)
+    return pairs[order], dist[order], valid[order]
+
+
+def match_pair(f1: ImageFeatures, f2: ImageFeatures, src_idx: int = 0,
+               dst_idx: int = 1, cfg: MatcherConfig = MatcherConfig(),
+               rcfg: RansacConfig = RansacConfig(), draws=None,
+               generator: torch.Generator | None = None) -> MatchesInfo:
+    """Descriptors -> RANSAC H -> confidence for one pair; H maps f1's
+    center-normalized points into f2's.
+
+    `draws`: optional (u_first (num_hypotheses, 4), u_refit (256, 4))
+    uniform draws for the two RANSAC passes; without them both come from
+    `generator`."""
+    if cfg.motion != "homography":
+        raise NotImplementedError(
+            f"matcher motion {cfg.motion!r} is not ported yet "
+            "(ROADMAP Queue A, item 16)")
+    dev = f1.xy.device
+    pairs, dist, valid = match_pair_descriptors(f1, f2, cfg)
+    c1 = 0.5 * torch.flip(f1.img_size.to(torch.float32), [0])
+    c2 = 0.5 * torch.flip(f2.img_size.to(torch.float32), [0])
+    src = f1.xy[pairs[:, 0].long()] - c1
+    dst = f2.xy[pairs[:, 1].long()] - c2
+
+    u_first, u_refit = draws if draws is not None else (None, None)
+    num_matches = valid.to(torch.int32).sum()
+    enough = num_matches >= cfg.num_matches_thresh1
+    res = find_homography(src, dst, valid, rcfg, u=u_first,
+                          generator=generator)
+    h_ok = res.ok & enough
+
+    conf = res.num_inliers.to(torch.float32) / (
+        8.0 + 0.3 * num_matches.to(torch.float32))
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    conf = torch.where(conf > 3.0, zero, conf)
+    conf = torch.where(h_ok, conf, zero)
+
+    # second pass on the first pass's inliers: replaces H, keeps the first
+    # pass's inlier mask, count and confidence
+    rcfg_refit = dataclasses.replace(
+        rcfg, num_hypotheses=min(REFIT_HYPOTHESES, rcfg.num_hypotheses))
+    refit = find_homography(src, dst, res.inliers & valid, rcfg_refit,
+                            u=u_refit, generator=generator)
+    do_refit = (res.num_inliers >= cfg.num_matches_thresh2) & refit.ok
+    H = torch.where(do_refit, refit.H, res.H)
+
+    eye = torch.eye(3, dtype=torch.float32, device=dev)
+    return MatchesInfo(
+        src_idx=torch.tensor(src_idx, dtype=torch.int32, device=dev),
+        dst_idx=torch.tensor(dst_idx, dtype=torch.int32, device=dev),
+        pairs=pairs, distance=dist, valid=valid,
+        inliers=res.inliers & valid,
+        num_inliers=torch.where(h_ok, res.num_inliers,
+                                torch.zeros_like(res.num_inliers)),
+        H=torch.where(h_ok, H, eye),
+        h_valid=h_ok, confidence=conf)

@@ -1,0 +1,302 @@
+"""The 2-image stitch (`imagestitch_tpu.pipeline`, the `stitch_pair` path):
+gray -> ORB on a 5-level pyramid (detector-maps kernel per level) ->
+Hamming 2-NN -> RANSAC homography -> focal + chained rotations -> ray
+bundle adjustment -> cylindrical warp of both images into one shared
+canvas (warp kernel, one launch) -> gain compensation -> DP seam ->
+20x20 seam dilate + feather blend -> bbox crop.
+
+Entry point: `stitch_pair(img1, img2, config=None, seed=0, device=None)`.
+It runs on the CUDA card unless the caller names another device; with
+device=None and no card it raises. Configuration kinds this package does
+not carry yet raise NotImplementedError naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from imagestitch_tpu_torch.blend.feather import feather_blend
+from imagestitch_tpu_torch.config import PipelineConfig
+from imagestitch_tpu_torch.exposure.gain import gain_compensate
+from imagestitch_tpu_torch.features import detect as detect_features
+from imagestitch_tpu_torch.geometry.autocalib import _masked_median
+from imagestitch_tpu_torch.geometry.bundle import bundle_adjust
+from imagestitch_tpu_torch.geometry.rotation import estimate_cameras
+from imagestitch_tpu_torch.matching.matcher import match_pair
+from imagestitch_tpu_torch.ops.cuda_warp import warp_batched
+from imagestitch_tpu_torch.ops.image import dilate, rgb_to_gray
+from imagestitch_tpu_torch.seam.dp import dp_seam_pair
+from imagestitch_tpu_torch.types import CameraParams
+from imagestitch_tpu_torch.warp.projectors import _camera_mats
+from imagestitch_tpu_torch.warp.warper import roi_bounds
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the CUDA card by default; with
+    device=None and no card, raise rather than run elsewhere."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run the plain "
+                "versions on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def set_full_precision() -> None:
+    """Every float32 matrix product (pyramid resize, Hamming, DLT, LM normal
+    equations) runs in full float32: TF32 off for matmuls and cuDNN."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def check_supported(cfg: PipelineConfig) -> None:
+    """Raise NotImplementedError for configuration kinds not ported yet."""
+    todo = []
+    if cfg.mode != "panorama":
+        todo.append(("mode='scans'", 16))
+    if cfg.work_megapix > 0:
+        todo.append(("work_megapix", 13))
+    if cfg.detector.kind != "orb":
+        todo.append(("detector kind 'sift'", 14))
+    if cfg.detector.wta_k != 2:
+        todo.append(("ORB wta_k 3/4", 13))
+    if cfg.camera.ba_refine and cfg.camera.ba_kind != "ray":
+        todo.append(("bundle adjuster 'reproj'", 13))
+    if cfg.camera.wave_correct:
+        todo.append(("wave correction", 13))
+    if cfg.exposure.kind not in ("gain", "none"):
+        todo.append((f"exposure kind {cfg.exposure.kind!r}", 13))
+    if cfg.seam.kind.startswith("graphcut") or cfg.seam.full_components:
+        todo.append((f"host seam {cfg.seam.kind!r}", 15))
+    elif cfg.seam.kind not in ("dp_color", "none"):
+        todo.append((f"seam kind {cfg.seam.kind!r}", 13))
+    if cfg.blend.kind not in ("feather", "none"):
+        todo.append((f"blend kind {cfg.blend.kind!r}", 13))
+    if cfg.crop != "bbox":
+        todo.append(("crop='interior'", 13))
+    if todo:
+        what, item = todo[0]
+        raise NotImplementedError(
+            f"{what} is not ported yet (ROADMAP Queue A, item {item})")
+
+
+def _pano_canvas_shape(hw: tuple[int, int], n_images: int,
+                       cfg: PipelineConfig) -> tuple[int, int]:
+    """Static pano canvas capacity."""
+    H, W = hw
+    w = int(round(W * (1.0 + (cfg.warp.canvas_scale_w - 1.0)
+                       * max(n_images - 1, 1))))
+    h = int(round(H * cfg.warp.canvas_scale_h))
+    return h, w
+
+
+def _warp_all_shared(images: torch.Tensor, cams: CameraParams, scale,
+                     canvas_hw: tuple[int, int], cfg: PipelineConfig,
+                     src_sizes: np.ndarray | None = None):
+    """Warp N images into one shared pano frame whose corner is the union
+    of the per-image ROI corners, in one launch of the warp kernel.
+    `src_sizes` (host (N, 2) [h, w]) gives true sizes of images
+    edge-padded to a common shape. Returns (warped (N, Hc, Wc, C), masks,
+    corner (2,) int32, overflow, roi_uvs (N, 4))."""
+    n = images.shape[0]
+    k_rinvs, corner, roi_uvs, overflow = warp_inputs(
+        cams, scale, images.shape[1:3], n, canvas_hw, cfg, src_sizes)
+    warped, masks = warp_batched(
+        images.contiguous(), k_rinvs, scale, corner.expand(n, 2), roi_uvs,
+        canvas_hw, cfg.warp.kind, src_sizes=src_sizes)
+    return warped, masks, corner, overflow, roi_uvs
+
+
+def warp_inputs(cams: CameraParams, scale, hw: tuple[int, int], n: int,
+                canvas_hw: tuple[int, int], cfg: PipelineConfig,
+                src_sizes: np.ndarray | None = None):
+    """The warp kernel's inputs for N cameras: (k_rinvs (N, 3, 3), shared
+    corner (2,) int32, roi_uvs (N, 4), overflow)."""
+    Hc, Wc = canvas_hw
+    Ks = cams.K()
+    hws = ([tuple(hw)] * n if src_sizes is None
+           else [(int(s[0]), int(s[1])) for s in src_sizes])
+    roi_uvs = torch.stack([
+        torch.stack(roi_bounds(Ks[i], cams.R[i], scale, hws[i],
+                               cfg.warp.kind)) for i in range(n)])
+    u0, v0 = roi_uvs[:, 0].min(), roi_uvs[:, 1].min()
+    u1, v1 = roi_uvs[:, 2].max(), roi_uvs[:, 3].max()
+    corner = torch.stack([torch.floor(u0), torch.floor(v0)]).to(torch.int32)
+    overflow = ((torch.ceil(u1) - torch.floor(u0) + 1 > Wc)
+                | (torch.ceil(v1) - torch.floor(v0) + 1 > Hc))
+    k_rinvs = torch.stack([_camera_mats(Ks[i], cams.R[i])[1]
+                           for i in range(n)])
+    return k_rinvs, corner, roi_uvs, overflow
+
+
+def _apply_exposure(warped, masks, cfg: PipelineConfig):
+    if cfg.exposure.kind == "gain":
+        _, warped = gain_compensate(warped, masks)
+    return warped
+
+
+def _blend_resolved(images, seam_masks, masks, cfg: PipelineConfig,
+                    dilate_seam: bool = True):
+    """Blend shared-frame canvases with resolved seam masks: a k x k rect
+    dilation ANDed with the coverage, then the blender."""
+    sm = seam_masks
+    if cfg.blend.kind == "none":
+        out = (images * sm[..., None]).sum(dim=0)
+        return out, sm.any(dim=0)
+    k = cfg.seam.dilate_kernel
+    if k > 1 and dilate_seam:
+        sm = (dilate(sm.to(torch.float32), (k, k)) > 0.5) & masks
+    return feather_blend(images, sm, cfg.blend.feather_sharpness)
+
+
+def _seam_and_blend(images, masks, cfg: PipelineConfig,
+                    src_w: int | None = None, src_h: int | None = None):
+    """Pairwise seam resolution along the chain + blend on (N, H, W, C)
+    shared-frame canvases. The DP runs on a window bounded by the overlap
+    a two-view pair can have (1.1x the source size for the contracting
+    cylindrical/spherical warps, 1.3x otherwise, 128-aligned)."""
+    n = images.shape[0]
+    fac = 1.1 if cfg.warp.kind in ("cylindrical", "spherical") else 1.3
+    max_w = (-(-int(round(fac * src_w)) // 128) * 128
+             if src_w is not None else None)
+    max_h = (-(-int(round(fac * src_h)) // 128) * 128
+             if src_h is not None else None)
+    seam_masks = [masks[i] for i in range(n)]
+    if cfg.seam.kind != "none":
+        for u, v in [(i, i + 1) for i in range(n - 1)]:
+            a2, b2, _ = dp_seam_pair(
+                images[u], images[v], seam_masks[u], seam_masks[v], False,
+                max_overlap_w=max_w, max_overlap_h=max_h,
+                orient=cfg.seam.orient, scale=cfg.seam.dp_scale)
+            seam_masks[u], seam_masks[v] = a2, b2
+    return _blend_resolved(images, torch.stack(seam_masks), masks, cfg,
+                           dilate_seam=cfg.seam.kind != "none")
+
+
+def register_pair(img1: torch.Tensor, img2: torch.Tensor,
+                  cfg: PipelineConfig = PipelineConfig(), draws=None,
+                  generator: torch.Generator | None = None):
+    """Stages 1-5 on two (H, W, 3) float32 images: features, matches +
+    homography, cameras, bundle adjustment. Returns (f1, f2, mi, cams)."""
+    check_supported(cfg)
+    dev = img1.device
+    f1 = detect_features(rgb_to_gray(img1), cfg.detector)
+    f2 = detect_features(rgb_to_gray(img2), cfg.detector)
+    mi = match_pair(f1, f2, 0, 1, cfg.matcher, cfg.ransac, draws=draws,
+                    generator=generator)
+    sizes = torch.tensor([list(img1.shape[:2]), list(img2.shape[:2])],
+                         dtype=torch.int32, device=dev)
+    cams = estimate_cameras(mi.H[None], mi.h_valid[None], sizes)
+    if cfg.camera.ba_refine:
+        pairs = mi.pairs.long()
+        cams = bundle_adjust(
+            cams, f1.xy[pairs[:, 0]][None], f2.xy[pairs[:, 1]][None],
+            (mi.inliers & mi.valid)[None],
+            torch.zeros(1, dtype=torch.int64, device=dev),
+            torch.ones(1, dtype=torch.int64, device=dev),
+            (mi.confidence > cfg.camera.ba_conf_thresh)[None],
+            cfg.camera.ba_iters, cfg.camera.ba_kind)
+    return f1, f2, mi, cams
+
+
+def warp_scale(cams: CameraParams) -> torch.Tensor:
+    """The warp's surface scale: the median focal (the midpoint of the two
+    middle values for an even count)."""
+    return _masked_median(cams.focal,
+                          torch.ones_like(cams.focal, dtype=torch.bool))
+
+
+def stitch_pair_front_impl(img1: torch.Tensor, img2: torch.Tensor,
+                           cfg: PipelineConfig = PipelineConfig(),
+                           draws=None,
+                           generator: torch.Generator | None = None):
+    """Stages 1-7 (detect -> gain-compensated shared-frame warps) on two
+    (H, W, 3) images on one device, possibly of different sizes. `draws`:
+    optional (u_first (num_hypotheses, 4), u_refit (256, 4)) RANSAC draws.
+    Returns (warped (2, Hc, Wc, 3), masks (2, Hc, Wc), corner, metrics)."""
+    H1, W1 = img1.shape[:2]
+    H2, W2 = img2.shape[:2]
+    H, W = max(H1, H2), max(W1, W2)
+    img1 = img1.to(torch.float32)
+    img2 = img2.to(torch.float32)
+    f1, f2, mi, cams = register_pair(img1, img2, cfg, draws, generator)
+    scale = warp_scale(cams)
+    canvas_hw = _pano_canvas_shape((H, W), 2, cfg)
+    if (H1, W1) == (H2, W2):
+        imgs = torch.stack([img1, img2])
+        src_sizes = None
+    else:
+        def pad(im, h, w):
+            x = im.permute(2, 0, 1)[None]
+            return F.pad(x, (0, W - w, 0, H - h),
+                         mode="replicate")[0].permute(1, 2, 0)
+        imgs = torch.stack([pad(img1, H1, W1), pad(img2, H2, W2)])
+        src_sizes = np.asarray([[H1, W1], [H2, W2]], np.int32)
+    warped, masks, corner, overflow, roi_uvs = _warp_all_shared(
+        imgs, cams, scale, canvas_hw, cfg, src_sizes=src_sizes)
+    warped = _apply_exposure(warped, masks, cfg)
+
+    metrics = {
+        "kpts1": f1.num_valid(), "kpts2": f2.num_valid(),
+        "num_matches": mi.num_matches(), "num_inliers": mi.num_inliers,
+        "confidence": mi.confidence, "focal": cams.focal[0],
+        "h_valid": mi.h_valid, "canvas_overflow": overflow,
+        "roi_uv": roi_uvs,
+    }
+    return warped, masks, corner, metrics
+
+
+def stitch_pair_impl(img1: torch.Tensor, img2: torch.Tensor,
+                     cfg: PipelineConfig = PipelineConfig(), draws=None,
+                     generator: torch.Generator | None = None):
+    """Two (H, W, 3) images on one device -> (pano canvas, valid, corner,
+    metrics)."""
+    H = max(img1.shape[0], img2.shape[0])
+    W = max(img1.shape[1], img2.shape[1])
+    warped, masks, corner, metrics = stitch_pair_front_impl(
+        img1, img2, cfg, draws, generator)
+    pano, valid = _seam_and_blend(warped, masks, cfg, src_w=W, src_h=H)
+    return pano, valid, corner, metrics
+
+
+def _crop_valid(pano: np.ndarray, valid: np.ndarray):
+    """Crop to the bounding box of the valid pixels."""
+    ys, xs = np.nonzero(valid)
+    if len(ys) == 0:
+        return pano[:1, :1], valid[:1, :1]
+    return (pano[ys.min():ys.max() + 1, xs.min():xs.max() + 1],
+            valid[ys.min():ys.max() + 1, xs.min():xs.max() + 1])
+
+
+def stitch_pair(img1, img2, config: PipelineConfig | None = None,
+                seed: int = 0, device=None, draws=None):
+    """Two (H, W, 3) uint8 RGB arrays -> (pano uint8, metrics).
+
+    Runs on `device` (default: the CUDA card; with no card it raises).
+    RANSAC draws come from a torch.Generator seeded with `seed` on that
+    device, unless `draws` injects them (see stitch_pair_front_impl)."""
+    cfg = config or PipelineConfig()
+    dev = resolve_device(device)
+    set_full_precision()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    a = torch.as_tensor(np.asarray(img1), device=dev)
+    b = torch.as_tensor(np.asarray(img2), device=dev)
+    pano, valid, _, metrics = stitch_pair_impl(a, b, cfg, draws, gen)
+    pano = pano.cpu().numpy()
+    valid = valid.cpu().numpy()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    pano, valid = _crop_valid(pano, valid)
+    out = np.clip(pano, 0, 255).astype(np.uint8)
+    m = {}
+    for k, v in metrics.items():
+        v = v.detach().cpu().numpy()
+        m[k] = v.item() if v.size == 1 else v.tolist()
+    m["stitch_pair_total"] = total_ms
+    return out, m

@@ -1,0 +1,121 @@
+"""Synthetic test scenes with known geometry (host NumPy).
+
+The same generators as `imagestitch_tpu.utils.io` (`synthetic_pair`,
+`synthetic_rotation_pair`), kept as this package's own copy so that it
+imports nothing of the JAX package; same seeds give the same pixels.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _render_scene(height: int, width: int, seed: int) -> np.ndarray:
+    """Deterministic corner-rich texture: random rectangles + blobs + grid."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((height, width, 3), np.float32)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    img[..., 0] = 90 + 50 * np.sin(xx / 97.0) * np.cos(yy / 71.0)
+    img[..., 1] = 100 + 40 * np.cos(xx / 53.0 + 1.0)
+    img[..., 2] = 110 + 45 * np.sin(yy / 83.0 + 2.0)
+    for _ in range(160):
+        h = int(rng.integers(8, height // 6))
+        w = int(rng.integers(8, width // 6))
+        y = int(rng.integers(0, height - h))
+        x = int(rng.integers(0, width - w))
+        color = rng.uniform(0, 255, size=3).astype(np.float32)
+        img[y:y + h, x:x + w] = 0.25 * img[y:y + h, x:x + w] + 0.75 * color
+    for _ in range(300):
+        y = int(rng.integers(2, height - 2))
+        x = int(rng.integers(2, width - 2))
+        color = rng.uniform(0, 255, size=3).astype(np.float32)
+        img[y - 1:y + 2, x - 1:x + 2] = color
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def synthetic_pair(height: int = 480, width: int = 640, overlap: float = 0.4,
+                   seed: int = 7, focal: float | None = None):
+    """Two overlapping views of one scene related by a pure x-translation.
+
+    Returns (img1, img2, true_shift_x): pixel (x, y) of img2 equals pixel
+    (x + true_shift_x, y) of img1 inside the overlap."""
+    shift = int(round(width * (1.0 - overlap)))
+    scene = _render_scene(height, width + shift, seed)
+    img1 = scene[:, :width]
+    img2 = scene[:, shift:shift + width]
+    return np.ascontiguousarray(img1), np.ascontiguousarray(img2), shift
+
+
+def _bilinear_sample(img: np.ndarray, x: np.ndarray, y: np.ndarray):
+    H, W = img.shape[:2]
+    x0 = np.clip(np.floor(x).astype(np.int64), 0, W - 2)
+    y0 = np.clip(np.floor(y).astype(np.int64), 0, H - 2)
+    fx = np.clip(x - x0, 0.0, 1.0)[..., None]
+    fy = np.clip(y - y0, 0.0, 1.0)[..., None]
+    p00 = img[y0, x0]
+    p01 = img[y0, x0 + 1]
+    p10 = img[y0 + 1, x0]
+    p11 = img[y0 + 1, x0 + 1]
+    return ((p00 * (1 - fx) + p01 * fx) * (1 - fy)
+            + (p10 * (1 - fx) + p11 * fx) * fy)
+
+
+def _rot_ypr(yaw: float, pitch: float, roll: float) -> np.ndarray:
+    """R = Rz(roll) @ Rx(pitch) @ Ry(yaw)."""
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    cx, sx = np.cos(pitch), np.sin(pitch)
+    cz, sz = np.cos(roll), np.sin(roll)
+    Ry = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+    Rx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+    Rz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    return Rz @ Rx @ Ry
+
+
+def synthetic_rotation_pair(height: int = 480, width: int = 640,
+                            yaw_deg: float = 10.0, pitch_deg: float = 1.0,
+                            roll_deg: float = 1.5, seed: int = 7,
+                            focal: float | None = None):
+    """Two views of one planar scene from a purely rotating camera.
+
+    Returns (img1, img2, H_true (3, 3) float64, focal) with
+    H_true = K R2 R1^-1 K^-1 (view 1 -> view 2)."""
+    f = float(focal if focal is not None else 0.9 * width)
+    yaw = np.deg2rad(yaw_deg)
+    extra = int(np.ceil(2.0 * f * np.tan(yaw) + 0.25 * width))
+    sh, sw = height + height // 3, width + extra
+    scene = _render_scene(sh, sw, seed).astype(np.float32)
+    return rotation_views_of_scene(scene, height, width, f,
+                                   yaw_deg, pitch_deg, roll_deg)
+
+
+def rotation_views_of_scene(scene: np.ndarray, height: int, width: int,
+                            focal: float, yaw_deg: float,
+                            pitch_deg: float = 1.0, roll_deg: float = 1.5):
+    """Render two rotating-camera views of a scene image.
+    Returns (img1, img2, H_true (3, 3) float64, focal)."""
+    f = float(focal)
+    scene = np.asarray(scene, np.float32)
+    sh, sw = scene.shape[:2]
+    K = np.array([[f, 0, (width - 1) / 2.0],
+                  [0, f, (height - 1) / 2.0],
+                  [0, 0, 1.0]])
+    Ks = np.array([[f, 0, (sw - 1) / 2.0],
+                   [0, f, (sh - 1) / 2.0],
+                   [0, 0, 1.0]])
+    yaw = np.deg2rad(yaw_deg)
+    R1 = _rot_ypr(-yaw / 2, 0.0, 0.0)
+    R2 = _rot_ypr(yaw / 2, np.deg2rad(pitch_deg), np.deg2rad(roll_deg))
+
+    ys, xs = np.mgrid[0:height, 0:width].astype(np.float64)
+    ones = np.ones_like(xs)
+    views = []
+    for R in (R1, R2):
+        M = Ks @ R.T @ np.linalg.inv(K)
+        px = M[0, 0] * xs + M[0, 1] * ys + M[0, 2] * ones
+        py = M[1, 0] * xs + M[1, 1] * ys + M[1, 2] * ones
+        pz = M[2, 0] * xs + M[2, 1] * ys + M[2, 2] * ones
+        views.append(np.clip(_bilinear_sample(scene, px / pz, py / pz),
+                             0, 255).astype(np.uint8))
+    H_true = K @ R2 @ R1.T @ np.linalg.inv(K)
+    H_true = H_true / H_true[2, 2]
+    return views[0], views[1], H_true, f

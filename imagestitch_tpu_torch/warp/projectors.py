@@ -1,0 +1,123 @@
+"""Rotation-warper projection math (`imagestitch_tpu.warp.projectors`):
+each projector maps source pixels to surface coordinates (forward:
+ray = R·K⁻¹·[x, y, 1]) and surface coordinates back to source pixels
+(backward: K·R⁻¹·ray with a perspective divide, valid where z > 0).
+
+The cylindrical, spherical and plane projectors are ported — the kinds the
+warp kernel (`ops.cuda_warp`) carries. `UNPORTED_KINDS` names the JAX
+package's other projectors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+PI = math.pi
+
+UNPORTED_KINDS = frozenset({
+    "fisheye", "stereographic", "mercator", "transverseMercator",
+    "compressedPlaneA2B1", "compressedPlaneA1.5B1", "paniniA2B1",
+    "paniniA1.5B1"})
+
+
+def _camera_mats(K: torch.Tensor, R: torch.Tensor):
+    """r_kinv = R·K⁻¹ (forward) and k_rinv = K·R⁻¹ (backward; the general
+    inverse, so non-orthogonal chained R stay correct)."""
+    K = K.to(torch.float32)
+    R = R.to(torch.float32)
+    return R @ torch.linalg.inv(K), K @ torch.linalg.inv(R)
+
+
+def _ray(r_kinv, x, y):
+    X = r_kinv[0, 0] * x + r_kinv[0, 1] * y + r_kinv[0, 2]
+    Y = r_kinv[1, 0] * x + r_kinv[1, 1] * y + r_kinv[1, 2]
+    Z = r_kinv[2, 0] * x + r_kinv[2, 1] * y + r_kinv[2, 2]
+    return X, Y, Z
+
+
+def _project(k_rinv, X, Y, Z):
+    """K·R⁻¹ projection with z > 0 validity."""
+    x = k_rinv[0, 0] * X + k_rinv[0, 1] * Y + k_rinv[0, 2] * Z
+    y = k_rinv[1, 0] * X + k_rinv[1, 1] * Y + k_rinv[1, 2] * Z
+    z = k_rinv[2, 0] * X + k_rinv[2, 1] * Y + k_rinv[2, 2] * Z
+    valid = z > 0
+    zsafe = torch.where(z.abs() < 1e-12, torch.full_like(z, 1e-12), z)
+    return x / zsafe, y / zsafe, valid
+
+
+class Projector:
+    """Base: subclasses define the surface <-> ray maps."""
+
+    def __init__(self, K, R, scale):
+        self.scale = torch.as_tensor(scale, dtype=torch.float32,
+                                     device=K.device)
+        self.r_kinv, self.k_rinv = _camera_mats(K, R)
+
+    @classmethod
+    def from_backward(cls, k_rinv: torch.Tensor, scale) -> "Projector":
+        """A projector that only maps backward, from K·R⁻¹ itself."""
+        p = cls.__new__(cls)
+        p.scale = torch.as_tensor(scale, dtype=torch.float32,
+                                  device=k_rinv.device)
+        p.r_kinv, p.k_rinv = None, k_rinv.to(torch.float32)
+        return p
+
+    def forward(self, x, y):
+        X, Y, Z = _ray(self.r_kinv, x, y)
+        return self._surface_from_ray(X, Y, Z)
+
+    def backward(self, u, v):
+        X, Y, Z = self._ray_from_surface(u, v)
+        return _project(self.k_rinv, X, Y, Z)
+
+
+class CylindricalProjector(Projector):
+    """u = s·atan2(x̂, ẑ), v = s·ŷ/√(x̂²+ẑ²); backward (sin u, v, cos u)."""
+
+    def _surface_from_ray(self, X, Y, Z):
+        u = self.scale * torch.atan2(X, Z)
+        denom = torch.sqrt(X * X + Z * Z)
+        v = self.scale * Y / denom.clamp(min=1e-12)
+        return u, v
+
+    def _ray_from_surface(self, u, v):
+        u = u / self.scale
+        v = v / self.scale
+        return torch.sin(u), v, torch.cos(u)
+
+
+class SphericalProjector(Projector):
+    """u = s·atan2(x̂, ẑ), v = s·(π − acos(ŷ/|r|))."""
+
+    def _surface_from_ray(self, X, Y, Z):
+        u = self.scale * torch.atan2(X, Z)
+        norm = torch.sqrt(X * X + Y * Y + Z * Z)
+        w = (Y / norm.clamp(min=1e-12)).clamp(-1.0, 1.0)
+        v = self.scale * (PI - torch.acos(w))
+        return u, v
+
+    def _ray_from_surface(self, u, v):
+        u = u / self.scale
+        v = v / self.scale
+        sinv = torch.sin(PI - v)
+        return sinv * torch.sin(u), torch.cos(PI - v), sinv * torch.cos(u)
+
+
+class PlaneProjector(Projector):
+    """u = s·x̂/ẑ, v = s·ŷ/ẑ."""
+
+    def _surface_from_ray(self, X, Y, Z):
+        zsafe = torch.where(Z.abs() < 1e-12, torch.full_like(Z, 1e-12), Z)
+        return self.scale * X / zsafe, self.scale * Y / zsafe
+
+    def _ray_from_surface(self, u, v):
+        return u / self.scale, v / self.scale, torch.ones_like(u)
+
+
+PROJECTORS = {
+    "cylindrical": CylindricalProjector,
+    "spherical": SphericalProjector,
+    "plane": PlaneProjector,
+}

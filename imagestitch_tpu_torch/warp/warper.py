@@ -1,0 +1,107 @@
+"""Rotation warper: projected-ROI bounds and the backward-map + bilinear
+gather into a static canvas (`imagestitch_tpu.warp.warper`).
+
+`warp_batched_plain` is the plain version of the warp kernel
+(`ops.cuda_warp.warp_batched`): the JAX package's XLA path, image by image,
+with the kernel's signature. `warp_image` warps one image through it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from imagestitch_tpu_torch.ops.image import remap_bilinear
+from imagestitch_tpu_torch.warp.projectors import PROJECTORS
+
+
+@dataclass(frozen=True)
+class WarpResult:
+    image: torch.Tensor   # (Hc, Wc, C) float32
+    mask: torch.Tensor    # (Hc, Wc) bool
+    corner: torch.Tensor  # (2,) int32 — (x, y) of the canvas origin
+
+
+def _linspace0(stop: float, num: int, device) -> torch.Tensor:
+    """float32 linspace(0, stop, num) evaluated as stop·(i/(num-1)) with the
+    exact endpoint — the JAX package's rounding."""
+    if num == 1:
+        return torch.zeros(1, dtype=torch.float32, device=device)
+    div = num - 1
+    step = torch.arange(div, dtype=torch.float32, device=device) / float(div)
+    stop_t = torch.tensor([stop], dtype=torch.float32, device=device)
+    return torch.cat([stop_t * step, stop_t])
+
+
+def _roi_bounds(proj, src_h: int, src_w: int, samples: int = 64):
+    """(u_min, v_min, u_max, v_max) from a decimated source grid."""
+    dev = proj.k_rinv.device
+    xs = _linspace0(src_w - 1.0, min(samples, src_w), dev)
+    ys = _linspace0(src_h - 1.0, min(samples, src_h), dev)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    u, v = proj.forward(gx, gy)
+    return u.min(), v.min(), u.max(), v.max()
+
+
+def roi_bounds(K: torch.Tensor, R: torch.Tensor, scale,
+               src_hw: tuple[int, int], kind: str = "cylindrical"):
+    """Projected-ROI bounds (u0, v0, u1, v1) of a source image."""
+    return _roi_bounds(PROJECTORS[kind](K, R, scale), src_hw[0], src_hw[1])
+
+
+def warp_batched_plain(imgs: torch.Tensor, k_rinvs: torch.Tensor, scale,
+                       corners: torch.Tensor, roi_uvs: torch.Tensor,
+                       canvas_hw: tuple[int, int], kind: str = "cylindrical",
+                       src_sizes=None):
+    """Warp (N, H, W, C) images into N (Hc, Wc) canvases: per canvas pixel
+    (u, v) = pixel + corner, the backward map, the ROI-rectangle test
+    (±1 px), the in-image test on each image's true size and a clamped
+    bilinear sample. Returns (out (N, Hc, Wc, C), valid (N, Hc, Wc) bool)."""
+    N, H, W = imgs.shape[:3]
+    Hc, Wc = canvas_hw
+    dev = imgs.device
+    outs, masks = [], []
+    for i in range(N):
+        h, w = ((H, W) if src_sizes is None
+                else (int(src_sizes[i][0]), int(src_sizes[i][1])))
+        proj = PROJECTORS[kind].from_backward(k_rinvs[i], scale)
+        corner = corners[i].to(torch.float32)
+        dx = torch.arange(Wc, dtype=torch.float32, device=dev)[None, :] \
+            + corner[0]
+        dy = torch.arange(Hc, dtype=torch.float32, device=dev)[:, None] \
+            + corner[1]
+        dxg = dx.expand(Hc, Wc)
+        dyg = dy.expand(Hc, Wc)
+        xm, ym, ray_ok = proj.backward(dxg, dyg)
+        u0, v0, u1, v1 = roi_uvs[i].to(torch.float32)
+        in_roi = ((dxg >= u0 - 1.0) & (dxg <= u1 + 1.0)
+                  & (dyg >= v0 - 1.0) & (dyg <= v1 + 1.0))
+        out, samp_ok = remap_bilinear(imgs[i, :h, :w], xm, ym)
+        valid = ray_ok & samp_ok & in_roi
+        vmask = valid[..., None] if out.ndim == 3 else valid
+        outs.append(torch.where(vmask, out, torch.zeros_like(out)))
+        masks.append(valid)
+    return torch.stack(outs), torch.stack(masks)
+
+
+def warp_image(img: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
+               scale, canvas_hw: tuple[int, int], kind: str = "cylindrical",
+               corner: torch.Tensor | None = None) -> WarpResult:
+    """Warp one source image (H, W[, C]) onto the projection surface with
+    bilinear sampling (the plain path, on any device)."""
+    H, W = img.shape[:2]
+    proj = PROJECTORS[kind](K, R, scale)
+    u0, v0, u1, v1 = _roi_bounds(proj, H, W)
+    if corner is None:
+        corner = torch.stack([torch.floor(u0), torch.floor(v0)])
+    corner = corner.to(torch.int32)
+    x = img.to(torch.float32)
+    squeeze = x.ndim == 2
+    if squeeze:
+        x = x[..., None]
+    out, valid = warp_batched_plain(
+        x[None], proj.k_rinv[None], scale, corner[None],
+        torch.stack([u0, v0, u1, v1])[None], canvas_hw, kind)
+    out = out[0, ..., 0] if squeeze else out[0]
+    return WarpResult(image=out, mask=valid[0], corner=corner)

@@ -1,0 +1,164 @@
+"""imagestitch_tpu_torch: configuration parity with the JAX package, the
+no-JAX import rule, and the device / unported-kind guards."""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from imagestitch_tpu import config as jcfg  # noqa: E402
+import imagestitch_tpu_torch  # noqa: E402
+from imagestitch_tpu_torch import config as tcfg  # noqa: E402
+from imagestitch_tpu_torch.convert import config_from_dict  # noqa: E402
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "imagestitch_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "imagestitch_tpu"}
+CLASSES = ["DetectorConfig", "MatcherConfig", "RansacConfig", "CameraConfig",
+           "WarpConfig", "ExposureConfig", "SeamConfig", "BlendConfig",
+           "PipelineConfig"]
+
+
+def _defaults(cls):
+    out = []
+    for f in dataclasses.fields(cls):
+        d = f.default
+        if d is dataclasses.MISSING:
+            d = f.default_factory()
+        if dataclasses.is_dataclass(d):
+            d = dataclasses.asdict(d)
+        out.append((f.name, d))
+    return out
+
+
+@pytest.mark.parametrize("name", CLASSES)
+def test_config_fields_and_defaults_match(name):
+    assert _defaults(getattr(tcfg, name)) == _defaults(getattr(jcfg, name))
+
+
+def test_config_from_dict_round_trip():
+    j = jcfg.PipelineConfig(
+        detector=jcfg.DetectorConfig(nfeatures=256, max_keypoints=768),
+        seam=jcfg.SeamConfig(dp_scale=1),
+        warp=jcfg.WarpConfig(kind="spherical"))
+    t = config_from_dict(dataclasses.asdict(j))
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert config_from_dict(dataclasses.asdict(jcfg.PipelineConfig())) \
+        == tcfg.PipelineConfig()
+
+
+def test_config_validation_matches():
+    for cls, kw in [("DetectorConfig", {"wta_k": 5}),
+                    ("SeamConfig", {"dp_scale": 3}),
+                    ("BlendConfig", {"kind": "nope"}),
+                    ("ExposureConfig", {"kind": "nope"})]:
+        with pytest.raises(AssertionError):
+            getattr(jcfg, cls)(**kw)
+        with pytest.raises(AssertionError):
+            getattr(tcfg, cls)(**kw)
+
+
+def test_unported_kinds_raise_with_roadmap_item():
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tcfg.WarpConfig(kind="fisheye")
+    with pytest.raises(AssertionError):
+        tcfg.WarpConfig(kind="nope")
+    from imagestitch_tpu_torch.pipeline import check_supported
+    for cfg, item in [
+            (tcfg.PipelineConfig(seam=tcfg.SeamConfig(kind="graphcut")), 15),
+            (tcfg.PipelineConfig(blend=tcfg.BlendConfig(kind="multiband")),
+             13),
+            (tcfg.PipelineConfig(detector=tcfg.DetectorConfig(kind="sift")),
+             14)]:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            check_supported(cfg)
+    check_supported(tcfg.PipelineConfig())
+
+
+def _python_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_port_source_imports_no_jax():
+    """AST scan: no import whose top-level module is jax, flax or the JAX
+    package (compared by exact name: `imagestitch_tpu_torch` is fine)."""
+    bad = []
+    for path in _python_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            bad += [f"{path.name}: {n}" for n in names
+                    if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_port_import_loads_no_jax_modules():
+    mods = sorted(
+        "imagestitch_tpu_torch." + ".".join(
+            p.relative_to(PORT).with_suffix("").parts)
+        for p in PORT.rglob("*.py") if p.name != "__init__.py")
+    code = ("import sys\n"
+            f"for m in {mods!r}:\n"
+            "    __import__(m)\n"
+            "import chip_smoke\n"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{sorted(FORBIDDEN)!r})\n"
+            "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    img = np.zeros((64, 64, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        imagestitch_tpu_torch.stitch_pair(img, img)
+
+
+def test_cpu_wrappers_never_build(monkeypatch):
+    """On CPU tensors the kernel wrappers run the plain versions: the
+    CUDA library is never built or loaded."""
+    from imagestitch_tpu_torch.ops import cuda_build, cuda_detect, cuda_warp
+
+    def boom():
+        raise AssertionError("kernel library requested for a CPU tensor")
+
+    monkeypatch.setattr(cuda_build, "load_library", boom)
+    n0, w0 = cuda_detect.launch_count, cuda_warp.launch_count
+    img = torch.rand(1, 32, 40) * 255
+    maps = cuda_detect.detect_maps(img, 20.0)
+    assert all(m.shape == img.shape for m in maps)
+    out, valid = cuda_warp.warp_batched(
+        torch.rand(1, 20, 30, 3), torch.eye(3)[None], 1.0,
+        torch.zeros(1, 2, dtype=torch.int32),
+        torch.tensor([[0.0, 0.0, 29.0, 19.0]]), (20, 30), "plane")
+    assert out.shape == (1, 20, 30, 3) and bool(valid.all())
+    assert (cuda_detect.launch_count, cuda_warp.launch_count) == (n0, w0)
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    from imagestitch_tpu_torch.ops import cuda_detect, cuda_warp
+    meta = torch.empty(1, 8, 8, device="meta")
+    with pytest.raises(ValueError):
+        cuda_detect.detect_maps(meta, 20.0)
+    with pytest.raises(ValueError):
+        cuda_warp.warp_batched(meta[..., None], torch.eye(3)[None], 1.0,
+                               torch.zeros(1, 2), torch.zeros(1, 4), (4, 4))

@@ -1,0 +1,100 @@
+"""imagestitch_tpu_torch kernels on a CUDA card: each hand-written kernel
+against its plain version on the same inputs, and a small stitch on the
+card against the same stitch on the CPU. The kernels have no CPU mode, so
+every test here skips without a card. This file imports no JAX, so it
+also runs where JAX is not installed:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from imagestitch_tpu_torch import PipelineConfig, WarpConfig, stitch_pair  # noqa
+from imagestitch_tpu_torch.convert import cameras_from_numpy  # noqa: E402
+from imagestitch_tpu_torch.ops import cuda_detect, cuda_warp  # noqa: E402
+from imagestitch_tpu_torch.pipeline import (_pano_canvas_shape,  # noqa
+                                            warp_inputs)
+from imagestitch_tpu_torch.utils.io import synthetic_rotation_pair  # noqa
+from imagestitch_tpu_torch.warp.warper import warp_batched_plain  # noqa
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("shape", [(2, 100, 150), (2, 97, 131),
+                                   (1, 378, 672)])
+def test_detect_kernel_matches_plain(cuda, shape):
+    """FAST/NMS equal everywhere, Harris within 1e-4·max|Harris| and the
+    blur within 1e-3 intensity (the chip_smoke.py tolerances)."""
+    rng = np.random.default_rng(sum(shape))
+    img = torch.as_tensor(rng.uniform(0, 255, shape).astype(np.float32),
+                          device=cuda)
+    k = cuda_detect.detect_maps_cuda(img, 20.0)
+    p = cuda_detect.detect_maps_plain(img, 20.0)
+    assert torch.equal(k[0], p[0])
+    assert float((k[1] - p[1]).abs().max()) <= \
+        1e-4 * float(p[1].abs().max())
+    assert float((k[2] - p[2]).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("kind", ["cylindrical", "spherical", "plane"])
+@pytest.mark.parametrize("mixed", [False, True], ids=["same", "mixed"])
+def test_warp_kernel_matches_plain(cuda, kind, mixed):
+    """Masks differ on at most 0.1% of the canvas (pixels at the image
+    border); values within 1e-2 where both are valid."""
+    h, w = 60, 80
+    rng = np.random.default_rng(7)
+    imgs = torch.as_tensor(rng.uniform(0, 255, (2, h, w, 3)).astype(
+        np.float32), device=cuda)
+    sizes = np.asarray([[h, w], [52, 70]] if mixed else [[h, w]] * 2,
+                       np.int32)
+    yaw = np.array([-0.1, 0.11])
+    R = np.stack([[[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                   [-np.sin(a), 0, np.cos(a)]] for a in yaw])
+    cams = cameras_from_numpy(dict(
+        focal=np.full(2, 90.0), aspect=np.ones(2), ppx=sizes[:, 1] / 2,
+        ppy=sizes[:, 0] / 2, R=R, t=np.zeros((2, 3))), device=cuda)
+    cfg = PipelineConfig(warp=WarpConfig(kind=kind))
+    canvas = _pano_canvas_shape((h, w), 2, cfg)
+    scale = torch.tensor(90.0, device=cuda)
+    src_sizes = sizes if mixed else None
+    kr, corner, roi, _ = warp_inputs(cams, scale, (h, w), 2, canvas, cfg,
+                                     src_sizes)
+    args = (imgs, kr, scale, corner.expand(2, 2), roi, canvas, kind,
+            src_sizes)
+    ok, vk = cuda_warp.warp_batched_cuda(*args)
+    op, vp = warp_batched_plain(*args)
+    assert float((vk != vp).float().mean()) < 1e-3
+    both = vk & vp
+    assert bool(both.any())
+    assert float((ok - op).abs()[both].max()) <= 1e-2
+
+
+def test_stitch_pair_on_card_matches_cpu_and_counts_launches(cuda):
+    """A 192x256 rotation pair stitched on the card and on the CPU with
+    the same RANSAC draws: equal counts, focal within 1e-3, pano within 1
+    intensity on average; the card's stitch launched the detector-maps
+    kernel 10 times (5 levels x 2 images) and the warp kernel once."""
+    a, b, _, _ = synthetic_rotation_pair(192, 256)
+    g = torch.Generator().manual_seed(1)
+    draws = (torch.rand((2048, 4), generator=g),
+             torch.rand((256, 4), generator=g))
+    cuda_detect.launch_count = 0
+    cuda_warp.launch_count = 0
+    pc, mc = stitch_pair(a, b, device=cuda, draws=draws)
+    assert (cuda_detect.launch_count, cuda_warp.launch_count) == (10, 1)
+    pp, mp = stitch_pair(a, b, device="cpu", draws=draws)
+    for k in ("kpts1", "kpts2", "num_matches", "num_inliers", "h_valid"):
+        assert mc[k] == mp[k], k
+    assert abs(mc["focal"] - mp["focal"]) <= 1e-3 * mp["focal"]
+    assert pc.shape == pp.shape
+    assert np.abs(pc.astype(float) - pp.astype(float)).mean() < 1.0
