@@ -18,16 +18,28 @@ result line is printed):
                 spherical and plane at 480x640, and a mixed-size pair.
                 Masks agree except within 1e-3 px of the validity boundary;
                 values agree within 1e-2 where both are valid.
-5. reference  — a small pair (192x256) stitched on the card and on the CPU
+5. sift_maps  — the SIFT octave-maps kernel against its plain version at
+                the four 1080p octave shapes (the first octave and three
+                later ones): the same nonzero score support, all five maps
+                within 1e-4; then its time for one SIFT stitch (8 calls).
+6. reference  — a small pair (192x256) stitched on the card and on the CPU
                 (the plain versions) with the same RANSAC draws agree.
-6. main_path  — stitch_pair with the default PipelineConfig on the 1080p
+7. sift_reference — the same with DetectorConfig(kind="sift").
+8. main_path  — stitch_pair with the default PipelineConfig on the 1080p
                 rotation pair and the 1080p translation pair: h_valid,
                 plausible focal / warped offset / pano width, and the
-                kernels' launch counts (detector maps 10, warp 1 per
-                stitch). Then the median wall time of warm stitches.
-7. stages     — wall ms of each stage of the 1080p rotation stitch and the
-                device's busy share of one stitch (torch.profiler).
-8. kernels    — one line {"kernels": [...]}: launches on the main path,
+                kernels' launch counts (detector maps 10, warp 1, SIFT 0
+                per stitch). Then the median wall time of warm stitches.
+9. sift_path  — stitch_pair with DetectorConfig(kind="sift") on the 1080p
+                rotation pair (cylindrical warp) and on the 40%-overlap
+                1080p pair with the plane warp (the configuration bench.py
+                times): h_valid, focal / offset / pano width, launch counts
+                (SIFT maps 8, warp 1, detector maps 0 per stitch), the
+                median wall time of warm stitches.
+10. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
+                of the 1080p SIFT plane stitch, and the device's busy share
+                of one stitch of each (torch.profiler).
+11. kernels   — one line {"kernels": [...]}: launches on the main paths,
                 error against the plain version, kernel / plain / library
                 ms and the least time the card could take (bound_ms).
 
@@ -58,6 +70,15 @@ DETECT_OPS_PER_PX = 384 + 11 + 49 + 26
 # 2 sincos (~20 each), 15 for the 3x3 projection, 2 divides, 8 compares,
 # 3 channels x 6 for the bilinear blend
 WARP_OPS_PER_PX = 2 + 40 + 15 + 2 + 8 + 18
+# SIFT octave maps, float32 operations per octave pixel beyond the blurs:
+# S+2 DoG differences, S+1 levels x 2 gradients x (difference, halving),
+# per interior layer 26 x 2 comparisons + |D| and the contrast test + 18
+# for the Hessian edge test
+SIFT_S = 3
+SIFT_OPS_EXTRA_PER_PX = (SIFT_S + 2) + 4 * (SIFT_S + 1) + SIFT_S * (52 + 2 + 18)
+# bytes per octave pixel: the base read once, dog S+2, score S, gx and gy
+# S+1 each and gS written once, float32
+SIFT_BYTES_PER_PX = 4 * (1 + (SIFT_S + 2) + SIFT_S + 2 * (SIFT_S + 1) + 1)
 N_TIMED = 20
 
 
@@ -340,7 +361,81 @@ def phase_warp(state):
           "library_ms": lib, "bound_ms": b_ms})
 
 
-def phase_reference(state):
+def _sift_octave_bases(gray, n_octaves: int = 4):
+    """The octave bases SIFT detection gives one (H, W) image: the image,
+    then each octave's level S halved (the plain version's levels)."""
+    from imagestitch_tpu_torch.ops.cuda_sift import (octave_levels,
+                                                     octave_shapes)
+    from imagestitch_tpu_torch.ops.image import resize
+    H, W = gray.shape
+    shapes = octave_shapes(H, W, n_octaves)
+    bases = [gray.contiguous()]
+    for o in range(1, len(shapes)):
+        gs = octave_levels(bases[-1], o == 1, SIFT_S, 1.6)[SIFT_S]
+        bases.append(resize(gs, shapes[o]).contiguous())
+    return bases
+
+
+def phase_sift_maps(state):
+    import torch
+    from imagestitch_tpu_torch.ops.cuda_sift import (
+        octave_blurs, sift_octave_maps_cuda, sift_octave_maps_plain)
+    from imagestitch_tpu_torch.ops.image import rgb_to_gray
+    img1, img2, _, _ = state["rot"]
+    ct = 0.04 * 255.0 / SIFT_S
+    calls = []                                 # (base, first) per octave
+    for img in (img1, img2):
+        gray = rgb_to_gray(torch.as_tensor(img).cuda().float())
+        calls += [(b, o == 0) for o, b in enumerate(_sift_octave_bases(gray))]
+    names = ("dog", "score", "gx", "gy", "gS")
+    worst = dict.fromkeys(names, 0.0)
+    cases = []
+    for base, first in calls[:4]:              # the four octave shapes
+        k = sift_octave_maps_cuda(base, first, SIFT_S, 1.6, ct)
+        p = sift_octave_maps_plain(base, first, SIFT_S, 1.6, ct)
+        torch.cuda.synchronize()
+        shape = list(base.shape)
+        diff = int(((k[1] > 0) != (p[1] > 0)).sum())
+        check(diff == 0, f"SIFT score support differs at {shape}: {diff} px")
+        for name, a, b in zip(names, k, p):
+            err = float((a - b).abs().max())
+            check(err <= 1e-4, f"SIFT {name} err {err} at {shape}")
+            worst[name] = max(worst[name], err)
+        cases.append({"shape": shape, "first": first,
+                      "extrema": int((p[1] > 0).sum())})
+
+    # one SIFT stitch: 4 octaves x 2 images, one call each
+    ms = cuda_ms(lambda: [sift_octave_maps_cuda(b, f, SIFT_S, 1.6, ct)
+                          for b, f in calls])
+    plain = cuda_ms(lambda: [sift_octave_maps_plain(b, f, SIFT_S, 1.6, ct)
+                             for b, f in calls], iters=3, warmup=1)
+    nbytes = ops = 0.0
+    for base, first in calls:
+        px = base.numel()
+        pre, chain = octave_blurs(SIFT_S, 1.6, first)
+        blur = sum(2 * (2 * k - 1) for k, _ in ([pre] if pre else [])
+                   + list(chain))
+        nbytes += SIFT_BYTES_PER_PX * px
+        ops += (blur + SIFT_OPS_EXTRA_PER_PX) * px
+    b_ms, b_by = bound_ms(nbytes, ops)
+    state["k3"] = {
+        "name": "sift_octave_maps", "route": "cuda",
+        "source": "imagestitch_tpu_torch/csrc/sift_octave.cu",
+        "replaces": "imagestitch_tpu/ops/pallas_sift.py:172",
+        "max_abs_err": max(worst.values()), "ms": ms, "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    emit({"phase": "sift_maps", "cases": cases, "support_equal": True,
+          "max_abs_err": worst, "ms_per_stitch": ms,
+          "plain_ms_per_stitch": plain, "bound_ms": b_ms,
+          "octave_px_per_stitch": int(sum(b.numel() for b, _ in calls)),
+          "mbytes_per_stitch": nbytes / 1e6,
+          "card": state["name"], "smi": state["smi"]})
+
+
+def _card_vs_cpu(name, config=None):
+    """A 192x256 rotation pair stitched on the card and on the CPU with the
+    same RANSAC draws: both h_valid, equal keypoint counts, focal within
+    1e-3, pano within 1 intensity on average."""
     import numpy as np
     import torch
     from imagestitch_tpu_torch import stitch_pair
@@ -349,44 +444,96 @@ def phase_reference(state):
     g = torch.Generator().manual_seed(1)
     draws = (torch.rand((2048, 4), generator=g),
              torch.rand((256, 4), generator=g))
-    pc, mc = stitch_pair(img1, img2, seed=0, device="cuda", draws=draws)
-    pp, mp = stitch_pair(img1, img2, seed=0, device="cpu", draws=draws)
+    pc, mc = stitch_pair(img1, img2, config, seed=0, device="cuda",
+                         draws=draws)
+    pp, mp = stitch_pair(img1, img2, config, seed=0, device="cpu",
+                         draws=draws)
     check(mc["h_valid"] and mp["h_valid"], "h_valid false on the small pair")
+    check((mc["kpts1"], mc["kpts2"]) == (mp["kpts1"], mp["kpts2"]),
+          f"keypoints card {mc['kpts1']}, {mc['kpts2']} vs CPU "
+          f"{mp['kpts1']}, {mp['kpts2']}")
     rel = abs(mc["focal"] - mp["focal"]) / mp["focal"]
     check(rel < 1e-3, f"focal card {mc['focal']} vs CPU {mp['focal']}")
     check(pc.shape == pp.shape, f"pano {pc.shape} vs CPU {pp.shape}")
     diff = np.abs(pc.astype(np.float64) - pp.astype(np.float64))
     check(diff.mean() < 1.0, f"pano mean abs diff {diff.mean()}")
-    emit({"phase": "reference", "shape": list(pc.shape),
+    emit({"phase": name, "shape": list(pc.shape),
           "focal_card": mc["focal"], "focal_cpu": mp["focal"],
           "kpts": [mc["kpts1"], mc["kpts2"], mp["kpts1"], mp["kpts2"]],
+          "matches": [mc["num_matches"], mp["num_matches"]],
           "inliers": [mc["num_inliers"], mp["num_inliers"]],
           "pano_mean_abs_diff": float(diff.mean())})
+
+
+def phase_reference(state):
+    _card_vs_cpu("reference")
+
+
+def phase_sift_reference(state):
+    from imagestitch_tpu_torch import DetectorConfig, PipelineConfig
+    _card_vs_cpu("sift_reference",
+                 PipelineConfig(detector=DetectorConfig(kind="sift")))
+
+
+def _reset_counts():
+    from imagestitch_tpu_torch.ops import cuda_detect, cuda_sift, cuda_warp
+    cuda_detect.launch_count = 0
+    cuda_sift.launch_count = 0
+    cuda_warp.launch_count = 0
+
+
+def _read_counts():
+    from imagestitch_tpu_torch.ops import cuda_detect, cuda_sift, cuda_warp
+    return {"detect_maps": cuda_detect.launch_count,
+            "sift_octave_maps": cuda_sift.launch_count,
+            "warp_batched": cuda_warp.launch_count}
+
+
+def _warm_walls(fn, n: int = 5):
+    import torch
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    walls.sort()
+    return walls
 
 
 def phase_main_path(state):
     import numpy as np
     import torch
     from imagestitch_tpu_torch import stitch_pair
-    from imagestitch_tpu_torch.ops import cuda_detect, cuda_warp
     from imagestitch_tpu_torch.utils.io import synthetic_pair
     img1, img2, _, f_true = state["rot"]
     t1, t2, shift = synthetic_pair(1080, 1920)
     pairs = [("rotation", img1, img2), ("translation", t1, t2)]
 
-    cuda_detect.launch_count = 0
-    cuda_warp.launch_count = 0
+    _reset_counts()
     results = {name: stitch_pair(a, b) for name, a, b in pairs}
     torch.cuda.synchronize()
-    launches = {"detect_maps": cuda_detect.launch_count,
-                "warp_batched": cuda_warp.launch_count}
-    check(launches["detect_maps"] == 10 * len(pairs),
-          f"detector-maps kernel launches {launches['detect_maps']}")
-    check(launches["warp_batched"] == len(pairs),
-          f"warp kernel launches {launches['warp_batched']}")
+    launches = _read_counts()
+    want = {"detect_maps": 10 * len(pairs), "sift_octave_maps": 0,
+            "warp_batched": len(pairs)}
+    check(launches == want, f"kernel launches {launches}, want {want}")
     state["k1"]["launches"] = launches["detect_maps"]
     state["k2"]["launches"] = launches["warp_batched"]
 
+    summary = _check_pairs(results, f_true, shift)
+    walls = _warm_walls(lambda: stitch_pair(img1, img2))
+    emit({"phase": "main_path", "launches": launches, "pairs": summary,
+          "wall_ms_median": walls[len(walls) // 2], "wall_ms": walls,
+          "card": state["name"], "smi": state["smi"]})
+
+
+def _check_pairs(results, f_true, shift):
+    """h_valid and a textured pano on every pair; the rotation pair's focal
+    within 5% of the truth and its views' warped offset within 10% of
+    focal x 10 degrees; the translation pair's pano width within 10% of
+    1920 + shift."""
+    import numpy as np
     summary = {}
     for name, (pano, m) in results.items():
         check(m["h_valid"], f"{name}: h_valid false")
@@ -410,33 +557,58 @@ def phase_main_path(state):
     tw = summary["translation"]["pano"][1]
     check(abs(tw - (1920 + shift)) < 0.1 * (1920 + shift),
           f"translation pano width {tw} vs {1920 + shift}")
+    return summary
 
-    walls = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stitch_pair(img1, img2)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    walls.sort()
-    emit({"phase": "main_path", "launches": launches, "pairs": summary,
+
+def _sift_configs():
+    from imagestitch_tpu_torch import (DetectorConfig, PipelineConfig,
+                                       WarpConfig)
+    sift = DetectorConfig(kind="sift")
+    return (PipelineConfig(detector=sift),
+            PipelineConfig(detector=sift, warp=WarpConfig(kind="plane")))
+
+
+def phase_sift_path(state):
+    """stitch_pair with the SIFT detector: the rotation pair with the
+    cylindrical warp, and bench.py's SIFT configuration (plane warp) on
+    synthetic_pair(1080, 1920, overlap=0.4, seed=1)."""
+    import torch
+    from imagestitch_tpu_torch import stitch_pair
+    from imagestitch_tpu_torch.utils.io import synthetic_pair
+    img1, img2, _, f_true = state["rot"]
+    t1, t2, shift = synthetic_pair(1080, 1920, overlap=0.4, seed=1)
+    state["sift_pair"] = (t1, t2)
+    cyl, plane = _sift_configs()
+    runs = [("rotation", img1, img2, cyl), ("translation", t1, t2, plane)]
+
+    _reset_counts()
+    results = {name: stitch_pair(a, b, c) for name, a, b, c in runs}
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    want = {"detect_maps": 0, "sift_octave_maps": 8 * len(runs),
+            "warp_batched": len(runs)}
+    check(launches == want, f"kernel launches {launches}, want {want}")
+    state["k3"]["launches"] = launches["sift_octave_maps"]
+
+    summary = _check_pairs(results, f_true, shift)
+    walls = _warm_walls(lambda: stitch_pair(t1, t2, plane))
+    emit({"phase": "sift_path", "launches": launches, "pairs": summary,
+          "timed": "translation, plane warp",
           "wall_ms_median": walls[len(walls) // 2], "wall_ms": walls,
           "card": state["name"], "smi": state["smi"]})
 
 
-def phase_stages(state):
-    """Wall time of each stage of the 1080p rotation stitch (synchronized
-    between stages, median of 3 warm runs), and the device's busy share of
-    one stitch from a torch.profiler trace."""
+def _stage_breakdown(img1, img2, cfg, n_warm: int):
+    """Wall ms of each stage of one stitch (synchronized between stages,
+    median of `n_warm` runs after a first one), and the device's busy
+    share of one stitch from a torch.profiler trace."""
     import numpy as np
     import torch
     from imagestitch_tpu_torch import pipeline as P
     from imagestitch_tpu_torch.features import detect as detect_features
     from imagestitch_tpu_torch.matching.matcher import match_pair
     from imagestitch_tpu_torch.ops.image import rgb_to_gray
-
-    img1, img2, _, _ = state["rot"]
-    cfg = P.PipelineConfig()
+    H, W = img1.shape[:2]
 
     def one(marks):
         def mark(name):
@@ -454,7 +626,7 @@ def phase_stages(state):
         mi = match_pair(f1, f2, 0, 1, cfg.matcher, cfg.ransac,
                         generator=gen)
         mark("match_ransac")
-        sizes = torch.tensor([[1080, 1920]] * 2, dtype=torch.int32,
+        sizes = torch.tensor([[H, W]] * 2, dtype=torch.int32,
                              device="cuda")
         cams = P.estimate_cameras(mi.H[None], mi.h_valid[None], sizes)
         pairs = mi.pairs.long()
@@ -466,19 +638,19 @@ def phase_stages(state):
             (mi.confidence > 1.0)[None], cfg.camera.ba_iters)
         mark("cameras_ba")
         scale = P.warp_scale(cams)
-        canvas = P._pano_canvas_shape((1080, 1920), 2, cfg)
+        canvas = P._pano_canvas_shape((H, W), 2, cfg)
         warped, masks, _, _, _ = P._warp_all_shared(
             torch.stack([a, b]), cams, scale, canvas, cfg)
         mark("warp")
         warped = P._apply_exposure(warped, masks, cfg)
         mark("exposure")
-        pano, valid = P._seam_and_blend(warped, masks, cfg, 1920, 1080)
+        pano, valid = P._seam_and_blend(warped, masks, cfg, W, H)
         mark("seam_blend")
         P._crop_valid(pano.cpu().numpy(), valid.cpu().numpy())
         mark("readback_crop")
 
     runs = []
-    for _ in range(4):
+    for _ in range(n_warm + 1):
         marks = []
         one(marks)
         runs.append({marks[i][0]: (marks[i][1] - marks[i - 1][1]) * 1e3
@@ -504,15 +676,29 @@ def phase_stages(state):
                          e.count] for e in top]}
     except Exception as e:      # the trace is a report, not a check
         busy = {"not_measured": repr(e)[:200]}
-    emit({"phase": "stages", "ms": stages, "total_ms": sum(stages.values()),
-          "profile": busy})
+    return {"ms": stages, "total_ms": sum(stages.values()), "profile": busy}
+
+
+def phase_stages(state):
+    """Stage breakdowns of the 1080p ORB rotation stitch (default config)
+    and of the 1080p SIFT plane stitch (bench.py's SIFT configuration)."""
+    from imagestitch_tpu_torch.config import PipelineConfig
+    img1, img2, _, _ = state["rot"]
+    t1, t2 = state["sift_pair"]
+    emit({"phase": "stages", "orb_rotation": _stage_breakdown(
+        img1, img2, PipelineConfig(), 3),
+        "sift_plane": _stage_breakdown(t1, t2, _sift_configs()[1], 3),
+        "card": state["name"], "smi": state["smi"]})
 
 
 def main() -> int:
     state = {}
     phases = [("device", phase_device), ("build", phase_build),
               ("detect", phase_detect), ("warp", phase_warp),
-              ("reference", phase_reference), ("main_path", phase_main_path),
+              ("sift_maps", phase_sift_maps),
+              ("reference", phase_reference),
+              ("sift_reference", phase_sift_reference),
+              ("main_path", phase_main_path), ("sift_path", phase_sift_path),
               ("stages", phase_stages)]
     for name, fn in phases:
         try:
@@ -524,7 +710,7 @@ def main() -> int:
             print(f"chip_smoke: phase {name} failed: {e}", file=sys.stderr)
             return 1
     import torch
-    emit({"kernels": [state["k1"], state["k2"]]})
+    emit({"kernels": [state["k1"], state["k2"], state["k3"]]})
     print(state["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

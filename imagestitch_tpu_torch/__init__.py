@@ -1,9 +1,10 @@
 """imagestitch_tpu_torch — the 2-image panorama pipeline of
 `imagestitch_tpu` in PyTorch, for an NVIDIA H100.
 
-Same stages, layouts and configuration as the JAX package; its two TPU
-kernels are hand-written CUDA kernels here (`ops.cuda_detect`,
-`ops.cuda_warp`, sources in `csrc/`), built with nvcc at first use. The
+Same stages, layouts and configuration as the JAX package (ORB or SIFT
+features); its three stitching TPU kernels are hand-written CUDA kernels
+here (`ops.cuda_detect`, `ops.cuda_sift`, `ops.cuda_warp`, sources in
+`csrc/`), built with nvcc at first use. The
 entry points run on the CUDA card unless the caller names another device
 (the CPU runs every kernel's plain version).
 

@@ -20,8 +20,9 @@ from dataclasses import dataclass
 
 @dataclass(frozen=True)
 class DetectorConfig:
-    """Feature detector configuration (ORB; "sift" is accepted here and
-    refused by the detector until it is ported)."""
+    """Feature detector configuration: ORB (the `nfeatures` ..
+    `harris_block_size` and grid fields) or SIFT (the `sift_*` fields);
+    `max_keypoints` is the padded capacity of either."""
 
     kind: str = "orb"             # orb | sift
     nfeatures: int = 512

@@ -49,11 +49,15 @@ def _fields_from_numpy(cls, fields: dict, dtypes: dict, device):
 
 def features_from_numpy(fields: dict, device="cpu") -> ImageFeatures:
     """ImageFeatures from a dict of NumPy arrays (the JAX pytree's
-    fields)."""
+    fields): binary ORB descriptors become uint8, float SIFT descriptors
+    float32."""
+    desc = (torch.float32
+            if np.issubdtype(np.asarray(fields["descriptors"]).dtype,
+                             np.floating) else torch.uint8)
     return _fields_from_numpy(ImageFeatures, fields, dict(
         xy=torch.float32, response=torch.float32, angle=torch.float32,
         size=torch.float32, level=torch.int32, valid=torch.bool,
-        descriptors=torch.uint8, img_size=torch.int32), device)
+        descriptors=desc, img_size=torch.int32), device)
 
 
 def matches_from_numpy(fields: dict, device="cpu") -> MatchesInfo:

@@ -145,9 +145,6 @@ def detect_and_compute(gray: torch.Tensor,
                        ) -> ImageFeatures:
     """Full ORB over one (H, W) grayscale image -> padded ImageFeatures
     (keypoint xy in source-image coordinates)."""
-    if cfg.kind != "orb":
-        raise NotImplementedError(
-            "the SIFT detector is not ported yet (ROADMAP Queue A, item 14)")
     H, W = gray.shape
     dev = gray.device
     ncells = cfg.grid_rows * cfg.grid_cols

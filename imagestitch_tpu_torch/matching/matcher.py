@@ -1,5 +1,6 @@
 """Pairwise matching + per-pair homography (`imagestitch_tpu.matching.
-matcher`, homography motion): exact Hamming 2-NN in both directions with
+matcher`, homography motion): exact Hamming (ORB) or squared-L2 (SIFT)
+2-NN in both directions with
 Lowe's ratio test, mutual-duplicate suppression, compaction to
 `max_matches` by ascending distance, center-normalized RANSAC, Brown–Lowe
 confidence and the second RANSAC pass on the inliers.
@@ -15,7 +16,8 @@ import torch
 from imagestitch_tpu_torch.config import MatcherConfig, RansacConfig
 from imagestitch_tpu_torch.features.orb import top_k_stable
 from imagestitch_tpu_torch.geometry.ransac import find_homography
-from imagestitch_tpu_torch.matching.hamming import hamming_distance_matrix
+from imagestitch_tpu_torch.matching.hamming import (hamming_distance_matrix,
+                                                    l2_distance_matrix)
 from imagestitch_tpu_torch.types import ImageFeatures, MatchesInfo
 
 BIG = float(np.float32(3.0e38))
@@ -44,11 +46,11 @@ def match_pair_descriptors(f1: ImageFeatures, f2: ImageFeatures,
     dev = f1.xy.device
     N = f1.capacity
     M = f2.capacity
+    # binary (ORB rBRIEF) descriptors -> Hamming; float (SIFT) -> L2
     if f1.descriptors.dtype.is_floating_point:
-        raise NotImplementedError(
-            "float (SIFT) descriptor matching is not ported yet "
-            "(ROADMAP Queue A, item 14)")
-    D = hamming_distance_matrix(f1.descriptors, f2.descriptors)
+        D = l2_distance_matrix(f1.descriptors, f2.descriptors)
+    else:
+        D = hamming_distance_matrix(f1.descriptors, f2.descriptors)
     D = torch.where(f1.valid[:, None] & f2.valid[None, :], D,
                     torch.full_like(D, BIG))
     ratio_keep = torch.tensor(1.0 - cfg.match_conf, dtype=torch.float32,

@@ -11,6 +11,7 @@ tensor it runs `detect_maps_plain`, the same function in plain tensor code
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -24,7 +25,6 @@ BLUR_KSIZE = 7
 BLUR_SIGMA = 2.0
 
 launch_count = 0
-_taps_cache: dict = {}
 
 
 def detect_maps_plain(img: torch.Tensor, threshold: float,
@@ -48,14 +48,11 @@ def _fn():
     return fn
 
 
-def _taps(device) -> "ctypes.Array":
-    """The plain version's float32 blur taps, as computed on `device`."""
-    key = str(device)
-    if key not in _taps_cache:
-        t = gaussian_kernel1d(BLUR_KSIZE, BLUR_SIGMA, device=device)
-        _taps_cache[key] = (ctypes.c_float * BLUR_KSIZE)(
-            *t.cpu().numpy().tolist())
-    return _taps_cache[key]
+@functools.lru_cache(maxsize=None)
+def _taps() -> "ctypes.Array":
+    """The plain version's float32 blur taps."""
+    t = gaussian_kernel1d(BLUR_KSIZE, BLUR_SIGMA)
+    return (ctypes.c_float * BLUR_KSIZE)(*t.numpy().tolist())
 
 
 def detect_maps_cuda(img: torch.Tensor, threshold: float,
@@ -78,7 +75,7 @@ def detect_maps_cuda(img: torch.Tensor, threshold: float,
     nms, harris, blur = (torch.empty_like(img) for _ in range(3))
     s4 = float(np.float32((1.0 / (4 * block_size * 255.0)) ** 4))
     fn = _fn()
-    taps = _taps(img.device)
+    taps = _taps()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = fn(img.data_ptr(), nms.data_ptr(), harris.data_ptr(),

@@ -1,0 +1,232 @@
+"""SIFT octave maps: for one octave of one (H, W) float32 image, the S+3
+chained Gaussian levels and from them
+
+  dog   (S+2, H, W)   difference-of-Gaussian layers
+  score (S, H, W)     |D| at strict 26-neighbour extrema of the interior
+                      layers 1..S passing the contrast and edge tests,
+                      0 elsewhere and within 8 px of the border
+  gx    (S+1, H, W)   edge-clamped central differences of levels 1..S+1
+  gy    (S+1, H, W)
+  gS    (H, W)        level S, the next octave's downsampling source
+
+the outputs of `imagestitch_tpu.features.sift._octave_maps` (its XLA
+path). On a CUDA tensor `sift_octave_maps` launches the hand-written
+kernel of `csrc/sift_octave.cu` (it replaces the TPU kernel
+`imagestitch_tpu/ops/pallas_sift.py:sift_octave_maps`) or raises; on a CPU
+tensor it runs `sift_octave_maps_plain`, the same function in plain
+tensor code. `launch_count` counts calls that launched the kernel (one
+per octave; each call runs several CUDA kernels).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from imagestitch_tpu_torch.ops.image import (gaussian_kernel1d,
+                                             sep_filter_planes)
+
+EDGE_RATIO = 10.0
+BORDER = 8
+MAX_TAPS = 15
+MAX_S = 6
+
+launch_count = 0
+
+
+def octave_shapes(H: int, W: int, num_octaves: int):
+    """Per-octave (H, W): the next octave halves the last while
+    min(h, w) // 2 >= 16."""
+    shapes = [(H, W)]
+    while len(shapes) < num_octaves and min(shapes[-1]) // 2 >= 16:
+        shapes.append((shapes[-1][0] // 2, shapes[-1][1] // 2))
+    return shapes
+
+
+@functools.lru_cache(maxsize=None)
+def octave_blurs(S: int, sigma0: float, first_octave: bool):
+    """(ksize, sigma) of each blur of one octave: the 7-tap sigma0
+    pre-blur on the first octave (None otherwise), then the S+2 chained
+    increments sqrt(sig_s^2 - sig_{s-1}^2), ksize max(3, 2 round(3 dsig)
+    + 1) capped at 15."""
+    pre = (7, sigma0) if first_octave else None
+    chain = []
+    for s in range(1, S + 3):
+        sig_prev = sigma0 * (2.0 ** ((s - 1) / S))
+        sig_cur = sigma0 * (2.0 ** (s / S))
+        dsig = float(np.sqrt(max(sig_cur ** 2 - sig_prev ** 2, 1e-6)))
+        k = max(3, int(2 * round(3 * dsig) + 1))
+        chain.append((min(k, MAX_TAPS), dsig))
+    return pre, tuple(chain)
+
+
+def octave_levels(base: torch.Tensor, first_octave: bool, S: int,
+                  sigma0: float) -> list[torch.Tensor]:
+    """The S+3 chained Gaussian levels of one octave, each blurred from the
+    last with reflect-101 borders (level 0 of the first octave carries
+    sigma0)."""
+    pre, chain = octave_blurs(S, sigma0, first_octave)
+    img = base.to(torch.float32)
+    if pre is not None:
+        k = gaussian_kernel1d(*pre, device=img.device)
+        img = sep_filter_planes(img[None], k, k)[0]
+    levels = [img]
+    for ks, sig in chain:
+        k = gaussian_kernel1d(ks, sig, device=img.device)
+        levels.append(sep_filter_planes(levels[-1][None], k, k)[0])
+    return levels
+
+
+def dog_extrema_scores(dog: torch.Tensor, contrast_thresh: float,
+                       edge_ratio: float = EDGE_RATIO) -> torch.Tensor:
+    """Extremum scores of an (L, H, W) DoG stack: |D| where the voxel is a
+    strict extremum of its 26 neighbours (wrapping shifts, as jnp.roll),
+    |D| >= contrast_thresh / 2 and the Hessian passes the edge-ratio test;
+    0 on the first and last layer and within 8 px of the border."""
+    L, H, W = dog.shape
+    d = dog
+    is_max = torch.ones_like(d, dtype=torch.bool)
+    is_min = torch.ones_like(d, dtype=torch.bool)
+    for dl in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if dl == dy == dx == 0:
+                    continue
+                nb = torch.roll(d, (dl, dy, dx), (0, 1, 2))
+                is_max &= d > nb
+                is_min &= d < nb
+    zero = torch.zeros((), dtype=d.dtype, device=d.device)
+    score = torch.where(is_max | is_min, d.abs(), zero)
+    ct = float(np.float32(0.5 * contrast_thresh))
+    score = torch.where(d.abs() >= ct, score, zero)
+
+    dxx = torch.roll(d, -1, 2) + torch.roll(d, 1, 2) - 2 * d
+    dyy = torch.roll(d, -1, 1) + torch.roll(d, 1, 1) - 2 * d
+    dxy = 0.25 * (torch.roll(d, (-1, -1), (1, 2))
+                  + torch.roll(d, (1, 1), (1, 2))
+                  - torch.roll(d, (-1, 1), (1, 2))
+                  - torch.roll(d, (1, -1), (1, 2)))
+    tr = dxx + dyy
+    det = dxx * dyy - dxy * dxy
+    r = edge_ratio
+    edge_ok = (det > 0) & (tr * tr * r < (r + 1.0) ** 2 * det)
+    score = torch.where(edge_ok, score, zero)
+    score[0] = 0.0
+    score[-1] = 0.0
+    ys = torch.arange(H, device=d.device)
+    xs = torch.arange(W, device=d.device)
+    my = ((ys >= BORDER) & (ys < H - BORDER)).to(d.dtype)
+    mx = ((xs >= BORDER) & (xs < W - BORDER)).to(d.dtype)
+    return score * my[None, :, None] * mx[None, None, :]
+
+
+def grad(img: torch.Tensor):
+    """Central-difference gradients (gx, gy) of (..., H, W) with
+    edge-clamped borders."""
+    p = torch.nn.functional.pad(img[None], (1, 1, 1, 1), mode="replicate")[0]
+    gx = 0.5 * (p[..., 1:-1, 2:] - p[..., 1:-1, :-2])
+    gy = 0.5 * (p[..., 2:, 1:-1] - p[..., :-2, 1:-1])
+    return gx, gy
+
+
+def sift_octave_maps_plain(base: torch.Tensor, first_octave: bool,
+                           S: int = 3, sigma0: float = 1.6,
+                           contrast_thresh: float = 34.0,
+                           edge_ratio: float = EDGE_RATIO):
+    """(H, W) float32 octave base -> (dog, score, gx, gy, gS) in plain
+    tensor code."""
+    levels = octave_levels(base, first_octave, S, sigma0)
+    dog = torch.stack([levels[i + 1] - levels[i]
+                       for i in range(len(levels) - 1)])
+    score = dog_extrema_scores(dog, contrast_thresh, edge_ratio)
+    gx, gy = grad(torch.stack(levels[1:S + 2]))
+    return dog, score[1:S + 1], gx, gy, levels[S]
+
+
+def _fn():
+    from imagestitch_tpu_torch.ops.cuda_build import load_library
+    fn = load_library().imagestitch_sift_octave
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.POINTER(ctypes.c_float),
+                      ctypes.POINTER(ctypes.c_int)]
+                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _taps(S: int, sigma0: float, first_octave: bool):
+    """Every blur's float32 taps as the plain version computes them, as
+    ctypes arrays (flat taps, per-blur lengths), the pre-blur first
+    (length 0 when there is none)."""
+    pre, chain = octave_blurs(S, sigma0, first_octave)
+    blurs = ([pre] if pre is not None else []) + list(chain)
+    taps = [gaussian_kernel1d(k, s).numpy() for k, s in blurs]
+    lens = [0 if pre is None else len(taps[0])] + [
+        len(t) for t in taps[(pre is not None):]]
+    flat = np.concatenate(taps).astype(np.float32)
+    return ((ctypes.c_float * len(flat))(*flat.tolist()),
+            (ctypes.c_int * len(lens))(*lens))
+
+
+def sift_octave_maps_cuda(base: torch.Tensor, first_octave: bool,
+                          S: int = 3, sigma0: float = 1.6,
+                          contrast_thresh: float = 34.0,
+                          edge_ratio: float = EDGE_RATIO):
+    """Launch the CUDA kernels on an (H, W) float32 contiguous CUDA
+    tensor; returns (dog, score, gx, gy, gS)."""
+    global launch_count
+    if not base.is_cuda:
+        raise ValueError("sift_octave_maps_cuda needs a CUDA tensor")
+    if base.dtype != torch.float32 or base.ndim != 2:
+        raise ValueError(f"expected (H, W) float32, got {base.dtype} "
+                         f"{tuple(base.shape)}")
+    if not base.is_contiguous():
+        raise ValueError("sift_octave_maps_cuda needs a contiguous tensor")
+    H, W = base.shape
+    if min(H, W) <= MAX_TAPS // 2:
+        raise ValueError(f"octave {H}x{W} is smaller than the blur radius")
+    if not 1 <= S <= MAX_S:
+        raise ValueError(f"the kernel takes 1..{MAX_S} scales per octave, "
+                         f"not {S}")
+    dev = base.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    scratch = torch.empty((S + 4, H, W), **f32)     # levels + one pass
+    dog = torch.empty((S + 2, H, W), **f32)
+    score = torch.empty((S, H, W), **f32)
+    gx = torch.empty((S + 1, H, W), **f32)
+    gy = torch.empty((S + 1, H, W), **f32)
+    gs = torch.empty((H, W), **f32)
+    taps, lens = _taps(S, float(sigma0), bool(first_octave))
+    ct_half = float(np.float32(0.5 * contrast_thresh))
+    r1sq = float(np.float32((edge_ratio + 1.0) ** 2))
+    fn = _fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(base.data_ptr(), scratch.data_ptr(), dog.data_ptr(),
+                    score.data_ptr(), gx.data_ptr(), gy.data_ptr(),
+                    gs.data_ptr(), H, W, S, int(first_octave), taps,
+                    lens, ct_half, float(edge_ratio), r1sq, stream)
+    from imagestitch_tpu_torch.ops.cuda_build import check
+    check(status, "sift_octave kernel launch")
+    launch_count += 1
+    return dog, score, gx, gy, gs
+
+
+def sift_octave_maps(base: torch.Tensor, first_octave: bool, S: int = 3,
+                     sigma0: float = 1.6, contrast_thresh: float = 34.0,
+                     edge_ratio: float = EDGE_RATIO):
+    """(H, W) float32 -> (dog, score, gx, gy, gS): the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    if base.is_cuda:
+        return sift_octave_maps_cuda(base.to(torch.float32).contiguous(),
+                                     first_octave, S, sigma0,
+                                     contrast_thresh, edge_ratio)
+    if base.device.type != "cpu":
+        raise ValueError(f"sift_octave_maps: unsupported device "
+                         f"{base.device}")
+    return sift_octave_maps_plain(base, first_octave, S, sigma0,
+                                  contrast_thresh, edge_ratio)

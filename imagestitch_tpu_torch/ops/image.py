@@ -1,15 +1,19 @@
 """Image substrate: gray conversion, separable Gaussian blur, rectangular
-dilation and the bilinear remap (the OpenCV cvtColor / GaussianBlur /
-dilate / remap the reference leans on), as plain tensor code on (H, W) or
-(H, W, C) float32, the layouts of `imagestitch_tpu.ops.image`.
+dilation, the bilinear remap (the OpenCV cvtColor / GaussianBlur / dilate
+/ remap the reference leans on) and `jax.image.resize`'s linear resize, as
+plain tensor code on (H, W) or (H, W, C) float32, the layouts of
+`imagestitch_tpu.ops.image`.
 
 Every product and sum rounds on its own, in the order the JAX package
-writes it (no fused multiply-adds): on the CPU the tests compare these
+writes it (no fused multiply-adds; the resize's matrix product is the one
+exception, see `_resize_axis`): on the CPU the tests compare these
 functions with it bit for bit where the detector thresholds on their
 values.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -26,13 +30,18 @@ def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
 
 def gaussian_kernel1d(ksize: int, sigma: float,
                       device=None) -> torch.Tensor:
-    """1-D Gaussian taps with cv::getGaussianKernel semantics (float32)."""
+    """1-D Gaussian taps with cv::getGaussianKernel semantics (float32),
+    computed on the CPU for every device, so that the card blurs with the
+    same taps as the CPU."""
     if sigma <= 0:
         sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
     r = (ksize - 1) / 2.0
-    x = torch.arange(ksize, dtype=torch.float32, device=device) - r
+    x = torch.arange(ksize, dtype=torch.float32) - r
     k = torch.exp(-(x * x) / (2.0 * sigma * sigma))
-    return k / k.sum()
+    tot = k[0]
+    for t in range(1, ksize):      # in sequence, as XLA:CPU sums them
+        tot = tot + k[t]
+    return (k / tot).to(device)
 
 
 def sep_filter_planes(x: torch.Tensor, kx: torch.Tensor, ky: torch.Tensor
@@ -86,6 +95,72 @@ def dilate(img: torch.Tensor, ksize: tuple[int, int] = (3, 3)
            ) -> torch.Tensor:
     """cv::dilate with a rect kernel over (..., H, W) float32."""
     return _morph_max(img.to(torch.float32), ksize[0], ksize[1])
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_taps(n_in: int, n_out: int):
+    """The nonzero band of `jax.image.resize`'s "linear" weight matrix
+    (scale_and_translate with antialias): a triangle kernel widened by
+    1/scale when downsampling (a 2x reduction has four taps, [1, 3, 3,
+    1]/8 away from the edges), each output column normalised by its sum.
+    Returns (index (T, n_out) int64, weight (T, n_out) float32), input
+    indices ascending; unused taps carry weight 0."""
+    scale = n_out / n_in
+    inv = 1.0 / scale
+    ks = max(inv, 1.0)
+    sf = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv - 0.5
+    x = (sf[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]
+         ).abs() / ks
+    w = torch.clamp(1.0 - x.abs(), min=0.0)                 # (n_in, n_out)
+    nz = w > 0
+    first = torch.argmax(nz.to(torch.int32), dim=0)
+    T = int(nz.sum(0).max())
+    idx = (first[None, :] + torch.arange(T)[:, None]).clamp(max=n_in - 1)
+    tw = torch.where(torch.arange(T)[:, None] < nz.sum(0)[None, :],
+                     torch.gather(w, 0, idx), torch.zeros(()))
+    tot = tw[0]
+    for t in range(1, T):
+        tot = tot + tw[t]
+    tw = torch.where(tot.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                     tw / torch.where(tot != 0, tot, torch.ones(())),
+                     torch.zeros(()))
+    inside = (sf >= -0.5) & (sf <= n_in - 0.5)
+    return idx, torch.where(inside[None, :], tw, torch.zeros(()))
+
+
+def _resize_axis(x: torch.Tensor, n_out: int, axis: int) -> torch.Tensor:
+    """The product with the weight matrix along `axis`, summed over each
+    column's taps in ascending input order with one rounding per
+    multiply-add (a sequential fused multiply-add, the order of XLA:CPU's
+    dot at the test shapes): float64 holds each float32 product exactly."""
+    idx, w = _resize_taps(x.shape[axis], n_out)
+    idx = idx.to(x.device)
+    w = w.to(device=x.device, dtype=torch.float64)
+    shape = [1] * x.ndim
+    shape[axis] = n_out
+    acc = torch.zeros((), dtype=torch.float32, device=x.device)
+    for t in range(idx.shape[0]):
+        xt = torch.index_select(x, axis, idx[t]).to(torch.float64)
+        acc = (xt * w[t].reshape(shape) + acc).to(torch.float32)
+    return acc
+
+
+def resize(img: torch.Tensor, out_hw: tuple[int, int],
+           method: str = "linear") -> torch.Tensor:
+    """`jax.image.resize(img, out_hw, "linear")` of (H, W) or (H, W, C)
+    float32: antialiased when downsampling, half-pixel centres. The two
+    axis products run in the order XLA's einsum contracts them (the
+    cheaper first: rows when H <= W)."""
+    if method != "linear":
+        raise NotImplementedError(f"resize method {method!r} is not ported")
+    x = img.to(torch.float32)
+    H, W = x.shape[:2]
+    h, w = out_hw
+    axes = [(0, h), (1, w)] if H <= W else [(1, w), (0, h)]
+    for axis, n in axes:
+        if x.shape[axis] != n:
+            x = _resize_axis(x, n, axis)
+    return x
 
 
 def remap_bilinear(img: torch.Tensor, xmap: torch.Tensor,

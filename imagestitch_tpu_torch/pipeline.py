@@ -1,6 +1,7 @@
 """The 2-image stitch (`imagestitch_tpu.pipeline`, the `stitch_pair` path):
-gray -> ORB on a 5-level pyramid (detector-maps kernel per level) ->
-Hamming 2-NN -> RANSAC homography -> focal + chained rotations -> ray
+gray -> ORB on a 5-level pyramid (detector-maps kernel per level) or SIFT
+on 4 octaves (octave-maps kernel per octave) -> Hamming or L2 2-NN ->
+RANSAC homography -> focal + chained rotations -> ray
 bundle adjustment -> cylindrical warp of both images into one shared
 canvas (warp kernel, one launch) -> gain compensation -> DP seam ->
 20x20 seam dilate + feather blend -> bbox crop.
@@ -61,9 +62,7 @@ def check_supported(cfg: PipelineConfig) -> None:
         todo.append(("mode='scans'", 16))
     if cfg.work_megapix > 0:
         todo.append(("work_megapix", 13))
-    if cfg.detector.kind != "orb":
-        todo.append(("detector kind 'sift'", 14))
-    if cfg.detector.wta_k != 2:
+    if cfg.detector.kind == "orb" and cfg.detector.wta_k != 2:
         todo.append(("ORB wta_k 3/4", 13))
     if cfg.camera.ba_refine and cfg.camera.ba_kind != "ray":
         todo.append(("bundle adjuster 'reproj'", 13))

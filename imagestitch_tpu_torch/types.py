@@ -24,12 +24,13 @@ class ImageFeatures(_Replace):
     """Detected keypoints + descriptors for one image (padded to capacity K)."""
 
     xy: torch.Tensor           # (K, 2) float32 — keypoint (x, y)
-    response: torch.Tensor     # (K,)  float32 — Harris response
-    angle: torch.Tensor        # (K,)  float32 — IC orientation, radians
-    size: torch.Tensor         # (K,)  float32 — patch size * level scale
-    level: torch.Tensor        # (K,)  int32   — pyramid octave
+    response: torch.Tensor     # (K,)  float32 — Harris (ORB) or |DoG| (SIFT)
+    angle: torch.Tensor        # (K,)  float32 — orientation, radians
+    size: torch.Tensor         # (K,)  float32 — keypoint diameter, pixels
+    level: torch.Tensor        # (K,)  int32   — pyramid level / octave
     valid: torch.Tensor        # (K,)  bool
-    descriptors: torch.Tensor  # (K, 256) uint8 in {0,1}
+    descriptors: torch.Tensor  # (K, 256) uint8 in {0,1} (ORB) or
+    #                            (K, 128) float32, unit norm (SIFT)
     img_size: torch.Tensor     # (2,) int32 — (height, width)
 
     @property

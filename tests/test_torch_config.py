@@ -77,11 +77,12 @@ def test_unported_kinds_raise_with_roadmap_item():
             (tcfg.PipelineConfig(seam=tcfg.SeamConfig(kind="graphcut")), 15),
             (tcfg.PipelineConfig(blend=tcfg.BlendConfig(kind="multiband")),
              13),
-            (tcfg.PipelineConfig(detector=tcfg.DetectorConfig(kind="sift")),
-             14)]:
+            (tcfg.PipelineConfig(mode="scans"), 16)]:
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             check_supported(cfg)
     check_supported(tcfg.PipelineConfig())
+    check_supported(tcfg.PipelineConfig(
+        detector=tcfg.DetectorConfig(kind="sift")))
 
 
 def _python_files():
@@ -136,29 +137,37 @@ def test_default_device_raises_without_cuda():
 def test_cpu_wrappers_never_build(monkeypatch):
     """On CPU tensors the kernel wrappers run the plain versions: the
     CUDA library is never built or loaded."""
-    from imagestitch_tpu_torch.ops import cuda_build, cuda_detect, cuda_warp
+    from imagestitch_tpu_torch.ops import (cuda_build, cuda_detect,
+                                           cuda_sift, cuda_warp)
 
     def boom():
         raise AssertionError("kernel library requested for a CPU tensor")
 
     monkeypatch.setattr(cuda_build, "load_library", boom)
     n0, w0 = cuda_detect.launch_count, cuda_warp.launch_count
+    s0 = cuda_sift.launch_count
     img = torch.rand(1, 32, 40) * 255
     maps = cuda_detect.detect_maps(img, 20.0)
     assert all(m.shape == img.shape for m in maps)
+    dog, score, gx, gy, gs = cuda_sift.sift_octave_maps(img[0], True)
+    assert dog.shape == (5, 32, 40) and score.shape == (3, 32, 40)
+    assert gx.shape == gy.shape == (4, 32, 40) and gs.shape == (32, 40)
     out, valid = cuda_warp.warp_batched(
         torch.rand(1, 20, 30, 3), torch.eye(3)[None], 1.0,
         torch.zeros(1, 2, dtype=torch.int32),
         torch.tensor([[0.0, 0.0, 29.0, 19.0]]), (20, 30), "plane")
     assert out.shape == (1, 20, 30, 3) and bool(valid.all())
-    assert (cuda_detect.launch_count, cuda_warp.launch_count) == (n0, w0)
+    assert (cuda_detect.launch_count, cuda_warp.launch_count,
+            cuda_sift.launch_count) == (n0, w0, s0)
 
 
 def test_kernel_wrappers_refuse_other_devices():
-    from imagestitch_tpu_torch.ops import cuda_detect, cuda_warp
+    from imagestitch_tpu_torch.ops import cuda_detect, cuda_sift, cuda_warp
     meta = torch.empty(1, 8, 8, device="meta")
     with pytest.raises(ValueError):
         cuda_detect.detect_maps(meta, 20.0)
+    with pytest.raises(ValueError):
+        cuda_sift.sift_octave_maps(meta[0], True)
     with pytest.raises(ValueError):
         cuda_warp.warp_batched(meta[..., None], torch.eye(3)[None], 1.0,
                                torch.zeros(1, 2), torch.zeros(1, 4), (4, 4))

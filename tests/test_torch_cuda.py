@@ -12,15 +12,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from imagestitch_tpu_torch import PipelineConfig, WarpConfig, stitch_pair  # noqa
+from imagestitch_tpu_torch import (DetectorConfig, PipelineConfig,  # noqa
+                                   WarpConfig, stitch_pair)
 from imagestitch_tpu_torch.convert import cameras_from_numpy  # noqa: E402
-from imagestitch_tpu_torch.ops import cuda_detect, cuda_warp  # noqa: E402
+from imagestitch_tpu_torch.ops import (cuda_detect, cuda_sift,  # noqa: E402
+                                       cuda_warp)
 from imagestitch_tpu_torch.pipeline import (_pano_canvas_shape,  # noqa
                                             warp_inputs)
 from imagestitch_tpu_torch.utils.io import synthetic_rotation_pair  # noqa
 from imagestitch_tpu_torch.warp.warper import warp_batched_plain  # noqa
 
 torch.set_num_threads(2)
+
+CONTRAST = 0.04 * 255.0 / 3      # the default SIFT contrast on 0..255
 
 
 @pytest.fixture
@@ -44,6 +48,27 @@ def test_detect_kernel_matches_plain(cuda, shape):
     assert float((k[1] - p[1]).abs().max()) <= \
         1e-4 * float(p[1].abs().max())
     assert float((k[2] - p[2]).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("shape,first", [((96, 160), True),
+                                         ((67, 121), False)],
+                         ids=["first", "later"])
+def test_sift_octave_kernel_matches_plain(cuda, shape, first):
+    """dog, score, gx, gy and gS within 1e-4 of the plain version and the
+    same nonzero score support (the chip_smoke.py tolerances)."""
+    rng = np.random.default_rng(sum(shape))
+    cells = rng.uniform(0, 255, (shape[0] // 8 + 1, shape[1] // 8 + 1))
+    img = np.kron(cells, np.ones((8, 8)))[:shape[0], :shape[1]]
+    base = torch.as_tensor(img.astype(np.float32), device=cuda)
+    n0 = cuda_sift.launch_count
+    k = cuda_sift.sift_octave_maps_cuda(base, first, 3, 1.6, CONTRAST)
+    p = cuda_sift.sift_octave_maps_plain(base, first, 3, 1.6, CONTRAST)
+    assert cuda_sift.launch_count == n0 + 1
+    for a, b in zip(k, p):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-4
+    assert torch.equal(k[1] > 0, p[1] > 0)
+    assert int((p[1] > 0).sum()) > 0
 
 
 @pytest.mark.parametrize("kind", ["cylindrical", "spherical", "plane"])
@@ -79,20 +104,28 @@ def test_warp_kernel_matches_plain(cuda, kind, mixed):
     assert float((ok - op).abs()[both].max()) <= 1e-2
 
 
-def test_stitch_pair_on_card_matches_cpu_and_counts_launches(cuda):
+@pytest.mark.parametrize("kind,launches", [("orb", (10, 0, 1)),
+                                           ("sift", (0, 8, 1))])
+def test_stitch_pair_on_card_matches_cpu_and_counts_launches(cuda, kind,
+                                                             launches):
     """A 192x256 rotation pair stitched on the card and on the CPU with
     the same RANSAC draws: equal counts, focal within 1e-3, pano within 1
-    intensity on average; the card's stitch launched the detector-maps
-    kernel 10 times (5 levels x 2 images) and the warp kernel once."""
+    intensity on average. The card's ORB stitch launched the detector-maps
+    kernel 10 times (5 levels x 2 images) and the warp kernel once; its
+    SIFT stitch called the octave-maps kernel 8 times (4 octaves x 2
+    images) and the warp kernel once."""
     a, b, _, _ = synthetic_rotation_pair(192, 256)
     g = torch.Generator().manual_seed(1)
     draws = (torch.rand((2048, 4), generator=g),
              torch.rand((256, 4), generator=g))
+    cfg = PipelineConfig(detector=DetectorConfig(kind=kind))
     cuda_detect.launch_count = 0
+    cuda_sift.launch_count = 0
     cuda_warp.launch_count = 0
-    pc, mc = stitch_pair(a, b, device=cuda, draws=draws)
-    assert (cuda_detect.launch_count, cuda_warp.launch_count) == (10, 1)
-    pp, mp = stitch_pair(a, b, device="cpu", draws=draws)
+    pc, mc = stitch_pair(a, b, cfg, device=cuda, draws=draws)
+    assert (cuda_detect.launch_count, cuda_sift.launch_count,
+            cuda_warp.launch_count) == launches
+    pp, mp = stitch_pair(a, b, cfg, device="cpu", draws=draws)
     for k in ("kpts1", "kpts2", "num_matches", "num_inliers", "h_valid"):
         assert mc[k] == mp[k], k
     assert abs(mc["focal"] - mp["focal"]) <= 1e-3 * mp["focal"]
