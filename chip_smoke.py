@@ -22,26 +22,36 @@ result line is printed):
                 the four 1080p octave shapes (the first octave and three
                 later ones): the same nonzero score support, all five maps
                 within 1e-4; then its time for one SIFT stitch (8 calls).
-6. reference  — a small pair (192x256) stitched on the card and on the CPU
+6. dma_layouts — the slab-load probe kernel against its plain version on
+                the seeded 1080x1920x3 source, 468 steps, planar and tiled,
+                h = 16, 24, 32, 48: equal bit for bit (max error 0), also
+                at every grid of 1-16 steps (16 more last steps). Then the
+                probe's entry point (tools.exp_dma_layouts.run) with the
+                launch counts: warm and cold ms, GB/s, the bound (the
+                source bytes the slabs cover, read once) and the slab
+                bytes over the memory rate (slab_hbm_ms).
+7. reference  — a small pair (192x256) stitched on the card and on the CPU
                 (the plain versions) with the same RANSAC draws agree.
-7. sift_reference — the same with DetectorConfig(kind="sift").
-8. main_path  — stitch_pair with the default PipelineConfig on the 1080p
+8. sift_reference — the same with DetectorConfig(kind="sift").
+9. main_path  — stitch_pair with the default PipelineConfig on the 1080p
                 rotation pair and the 1080p translation pair: h_valid,
                 plausible focal / warped offset / pano width, and the
-                kernels' launch counts (detector maps 10, warp 1, SIFT 0
-                per stitch). Then the median wall time of warm stitches.
-9. sift_path  — stitch_pair with DetectorConfig(kind="sift") on the 1080p
+                kernels' launch counts (detector maps 10, warp 1, SIFT 0,
+                slab probe 0 per stitch). Then the median wall time of warm
+                stitches.
+10. sift_path — stitch_pair with DetectorConfig(kind="sift") on the 1080p
                 rotation pair (cylindrical warp) and on the 40%-overlap
                 1080p pair with the plane warp (the configuration bench.py
                 times): h_valid, focal / offset / pano width, launch counts
-                (SIFT maps 8, warp 1, detector maps 0 per stitch), the
-                median wall time of warm stitches.
-10. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
+                (SIFT maps 8, warp 1, detector maps 0, slab probe 0 per
+                stitch), the median wall time of warm stitches.
+11. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
                 of the 1080p SIFT plane stitch, and the device's busy share
                 of one stitch of each (torch.profiler).
-11. kernels   — one line {"kernels": [...]}: launches on the main paths,
-                error against the plain version, kernel / plain / library
-                ms and the least time the card could take (bound_ms).
+12. kernels   — one line {"kernels": [...]}: launches on each kernel's
+                path, error against the plain version, kernel / plain /
+                library ms and the least time the card could take
+                (bound_ms).
 
 Then the card's name and power limit, and the last line
 {"ok": true, "device": {...}}. Needs one card; builds everything it runs.
@@ -432,6 +442,96 @@ def phase_sift_maps(state):
           "card": state["name"], "smi": state["smi"]})
 
 
+def _covered_bytes(h: int, steps: int) -> int:
+    """Source bytes the probe's slabs cover in this run (each read once):
+    the union of the windows over every step and chunk, counted on the
+    (8, 128) cells the origins are aligned to."""
+    import numpy as np
+    from imagestitch_tpu_torch.ops.slab_probe import NCH, SLAB_W, origins
+    from imagestitch_tpu_torch.tools import exp_dma_layouts as tool
+    cells = np.zeros((tool.H // 8, tool.W // 128), bool)
+    step = np.arange(steps, dtype=np.int64)
+    for ch in range(NCH):
+        sy, sx = origins(step, ch, tool.H, tool.W, h)
+        for y, x in zip(sy // 8, sx // 128):
+            cells[y:y + h // 8, x:x + SLAB_W // 128] = True
+    return int(cells.sum()) * 8 * 128 * 4 * tool.C
+
+
+def phase_dma_layouts(state):
+    """The slab-load probe (K4): the kernel against its plain version on the
+    full source and grid at both layouts and every slab height, and at
+    short grids, whose last steps have other origins; then the probe's
+    entry point with the launch counts reset before it and read after it.
+    bound_ms is the source bytes the slabs cover over the memory rate (the
+    function must read them once; every reread may come from L2), and
+    slab_hbm_ms the slab bytes over that rate."""
+    import torch
+    from imagestitch_tpu_torch.ops import cuda_slab_probe
+    from imagestitch_tpu_torch.ops.slab_probe import (NCH, STEPS,
+                                                      slab_probe_plain)
+    from imagestitch_tpu_torch.tools import exp_dma_layouts as tool
+    planar, tiled = tool.source("cuda")
+    srcs = {"planar": planar, "tiled": tiled}
+    cases = {}
+    for h in tool.HS:
+        for layout, src in srcs.items():
+            is_t = layout == "tiled"
+            k = cuda_slab_probe.slab_probe_cuda(src, h, is_t)
+            p = slab_probe_plain(src, h, is_t)
+            torch.cuda.synchronize()
+            err = float((k - p).abs().max())
+            check(torch.equal(k, p), f"slab probe h={h} {layout}: kernel "
+                  f"differs from plain, max error {err}")
+            plain = cuda_ms(lambda: slab_probe_plain(src, h, is_t), iters=3,
+                            warmup=1)
+            for steps in range(1, 17):
+                ks = cuda_slab_probe.slab_probe_cuda(src, h, is_t, steps)
+                ps = slab_probe_plain(src, h, is_t, steps)
+                check(torch.equal(ks, ps), f"slab probe h={h} {layout} "
+                      f"steps={steps}: kernel differs from plain")
+            cases[(h, layout)] = {"max_abs_err": err, "plain_ms": plain,
+                                  "checksum": float(p.double().sum()),
+                                  "short_grids_equal": 16}
+
+    reps = 20
+    _reset_counts()
+    rows = tool.run("cuda", reps=reps)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    want = {"detect_maps": 0, "sift_octave_maps": 0, "warp_batched": 0,
+            "slab_probe": len(rows) * (3 + 2 * reps)}
+    check(launches == want, f"kernel launches {launches}, want {want}")
+
+    out = []
+    for r in rows:
+        c = cases[(r["h"], r["layout"])]
+        check(r["checksum"] == c["checksum"], f"entry point h={r['h']} "
+              f"{r['layout']}: sum {r['checksum']} vs plain {c['checksum']}")
+        slab = tool.slab_gb(r["h"], STEPS) * 1e9
+        uniq = _covered_bytes(r["h"], STEPS)
+        # one float32 add per element of each slab's (8, 128) block
+        b_ms, b_by = bound_ms(uniq, STEPS * NCH * 8 * 128)
+        out.append({**r, **c, "bound_ms": b_ms, "bound_by": b_by,
+                    "unique_mb": uniq / 1e6,
+                    "slab_hbm_ms": slab / HBM_BYTES_PER_S * 1e3})
+    # the kernels line: the warp's slab height (48) on its planar source,
+    # with L2 flushed
+    main = next(o for o in out if o["h"] == 48 and o["layout"] == "planar")
+    state["k4"] = {
+        "name": "slab_probe", "route": "cuda",
+        "source": "imagestitch_tpu_torch/csrc/slab_probe.cu",
+        "replaces": "tools/exp_dma_layouts.py:93",
+        "launches": launches["slab_probe"],
+        "max_abs_err": max(o["max_abs_err"] for o in out),
+        "ms": main["cold_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "case": "h=48 planar, L2 flushed",
+        "warm_ms": main["warm_ms"], "slab_hbm_ms": main["slab_hbm_ms"]}
+    emit({"phase": "dma_layouts", "steps": STEPS, "launches": launches,
+          "cases": out, "card": state["name"], "smi": state["smi"]})
+
+
 def _card_vs_cpu(name, config=None):
     """A 192x256 rotation pair stitched on the card and on the CPU with the
     same RANSAC draws: both h_valid, equal keypoint counts, focal within
@@ -476,17 +576,21 @@ def phase_sift_reference(state):
 
 
 def _reset_counts():
-    from imagestitch_tpu_torch.ops import cuda_detect, cuda_sift, cuda_warp
+    from imagestitch_tpu_torch.ops import (cuda_detect, cuda_sift,
+                                           cuda_slab_probe, cuda_warp)
     cuda_detect.launch_count = 0
     cuda_sift.launch_count = 0
     cuda_warp.launch_count = 0
+    cuda_slab_probe.launch_count = 0
 
 
 def _read_counts():
-    from imagestitch_tpu_torch.ops import cuda_detect, cuda_sift, cuda_warp
+    from imagestitch_tpu_torch.ops import (cuda_detect, cuda_sift,
+                                           cuda_slab_probe, cuda_warp)
     return {"detect_maps": cuda_detect.launch_count,
             "sift_octave_maps": cuda_sift.launch_count,
-            "warp_batched": cuda_warp.launch_count}
+            "warp_batched": cuda_warp.launch_count,
+            "slab_probe": cuda_slab_probe.launch_count}
 
 
 def _warm_walls(fn, n: int = 5):
@@ -516,10 +620,11 @@ def phase_main_path(state):
     torch.cuda.synchronize()
     launches = _read_counts()
     want = {"detect_maps": 10 * len(pairs), "sift_octave_maps": 0,
-            "warp_batched": len(pairs)}
+            "warp_batched": len(pairs), "slab_probe": 0}
     check(launches == want, f"kernel launches {launches}, want {want}")
     state["k1"]["launches"] = launches["detect_maps"]
     state["k2"]["launches"] = launches["warp_batched"]
+    state["k4"]["launches_stitching"] = launches["slab_probe"]
 
     summary = _check_pairs(results, f_true, shift)
     walls = _warm_walls(lambda: stitch_pair(img1, img2))
@@ -586,9 +691,10 @@ def phase_sift_path(state):
     torch.cuda.synchronize()
     launches = _read_counts()
     want = {"detect_maps": 0, "sift_octave_maps": 8 * len(runs),
-            "warp_batched": len(runs)}
+            "warp_batched": len(runs), "slab_probe": 0}
     check(launches == want, f"kernel launches {launches}, want {want}")
     state["k3"]["launches"] = launches["sift_octave_maps"]
+    state["k4"]["launches_stitching"] += launches["slab_probe"]
 
     summary = _check_pairs(results, f_true, shift)
     walls = _warm_walls(lambda: stitch_pair(t1, t2, plane))
@@ -696,6 +802,7 @@ def main() -> int:
     phases = [("device", phase_device), ("build", phase_build),
               ("detect", phase_detect), ("warp", phase_warp),
               ("sift_maps", phase_sift_maps),
+              ("dma_layouts", phase_dma_layouts),
               ("reference", phase_reference),
               ("sift_reference", phase_sift_reference),
               ("main_path", phase_main_path), ("sift_path", phase_sift_path),
@@ -710,7 +817,7 @@ def main() -> int:
             print(f"chip_smoke: phase {name} failed: {e}", file=sys.stderr)
             return 1
     import torch
-    emit({"kernels": [state["k1"], state["k2"], state["k3"]]})
+    emit({"kernels": [state["k1"], state["k2"], state["k3"], state["k4"]]})
     print(state["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

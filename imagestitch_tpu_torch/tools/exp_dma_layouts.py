@@ -1,0 +1,137 @@
+"""Slab-load microbenchmark on the card: the cost of staging (C, h, 384)
+source windows in shared memory, planar against 128-column-tiled sources.
+The counterpart of the TPU tool `tools/exp_dma_layouts.py`.
+
+For h in (16, 24, 32, 48) and each layout, the probe kernel
+(`ops/cuda_slab_probe.py`, `csrc/slab_probe.cu`) copies 468 x 8 slabs of a
+seeded (3, 1080, 1920) float32 source into shared memory, one bulk copy
+per contiguous run. Each line gives the median time of one probe call:
+
+- warm: calls back to back, the 24.9 MB source resident in the 50 MB L2;
+- cold: before each call a write of a 256 MB buffer evicts L2,
+
+with the slab bytes moved and the rate (slab bytes / time). Times on the
+card are CUDA-event medians; with --device cpu the plain version runs and
+is timed on the host clock.
+
+    python3 -m imagestitch_tpu_torch.tools.exp_dma_layouts [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+from imagestitch_tpu_torch.ops.cuda_slab_probe import slab_probe
+from imagestitch_tpu_torch.ops.slab_probe import (NCH, SLAB_W, STEPS,
+                                                  to_tiled)
+from imagestitch_tpu_torch.pipeline import resolve_device
+
+H, W, C = 1080, 1920, 3
+HS = (16, 24, 32, 48)
+SEED = 0
+FLUSH_BYTES = 256 << 20     # > 5x the H100's 50 MB L2
+_SLEEP_CYCLES = 2_000_000   # ~1 ms: the host enqueues the call meanwhile
+
+
+def source(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The seeded (C, H, W) planar float32 source and its tiled form."""
+    rng = np.random.default_rng(SEED)
+    planar = torch.as_tensor(rng.random((C, H, W)).astype(np.float32),
+                             device=device)
+    return planar, to_tiled(planar)
+
+
+def slab_gb(h: int, steps: int = STEPS) -> float:
+    """GB of slabs one probe call copies."""
+    return steps * NCH * C * h * SLAB_W * 4 / 1e9
+
+
+def median_ms(fn, reps: int, device: torch.device,
+              flush: torch.Tensor | None = None) -> float:
+    """Median ms of one fn() call over `reps`, after one warm-up call; with
+    `flush`, the buffer is written before each call. On the card: CUDA
+    events around the call alone, the stream held by a sleep kernel so
+    that the host's launch time stays outside them. On the CPU: the host
+    clock."""
+    fn()
+    if device.type != "cuda":
+        ts = []
+        for i in range(reps):
+            if flush is not None:
+                flush.fill_(float(i))
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(statistics.median(ts))
+    pairs = []
+    for i in range(reps):
+        if flush is not None:
+            flush.fill_(float(i))
+        torch.cuda._sleep(_SLEEP_CYCLES)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        pairs.append((e0, e1))
+    torch.cuda.synchronize()
+    return float(statistics.median(e0.elapsed_time(e1) for e0, e1 in pairs))
+
+
+def run(device=None, hs=HS, steps: int = STEPS, reps: int = 20,
+        flush_bytes: int = FLUSH_BYTES) -> list[dict]:
+    """Time the probe at each slab height and layout; one row each with
+    warm and cold ms, the slab GB moved, GB/s and the output's sum. Each
+    row calls the probe 3 + 2 x reps times."""
+    dev = resolve_device(device)
+    planar, tiled = source(dev)
+    flush = torch.empty(flush_bytes // 4, dtype=torch.float32, device=dev)
+    rows = []
+    for h in hs:
+        gb = slab_gb(h, steps)
+        for layout, src in (("planar", planar), ("tiled", tiled)):
+            is_t = layout == "tiled"
+
+            def one(src=src, h=h, is_t=is_t):
+                return slab_probe(src, h, is_t, steps)
+
+            out = one()
+            warm = median_ms(one, reps, dev)
+            cold = median_ms(one, reps, dev, flush)
+            rows.append({"h": h, "layout": layout, "device": dev.type,
+                         "steps": steps, "gb": gb, "warm_ms": warm,
+                         "cold_ms": cold, "warm_gbps": gb / warm * 1e3,
+                         "cold_gbps": gb / cold * 1e3,
+                         "checksum": float(out.double().sum())})
+    return rows
+
+
+def print_rows(rows: list[dict]) -> None:
+    for r in rows:
+        print(f"  h={r['h']:2d} {r['layout']:>6}: warm {r['warm_ms']:8.4f} "
+              f"ms ({r['warm_gbps']:7.1f} GB/s)  cold {r['cold_ms']:8.4f} "
+              f"ms ({r['cold_gbps']:7.1f} GB/s)  {r['gb']:.4f} GB "
+              f"[{r['device']}]")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu for the plain version")
+    args = ap.parse_args(argv)
+    dev = resolve_device(args.device)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"device {name}, {STEPS} steps x {NCH} slabs of "
+          f"{C}x{{h}}x{SLAB_W} float32", file=sys.stderr)
+    print_rows(run(dev))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -138,14 +138,15 @@ def test_cpu_wrappers_never_build(monkeypatch):
     """On CPU tensors the kernel wrappers run the plain versions: the
     CUDA library is never built or loaded."""
     from imagestitch_tpu_torch.ops import (cuda_build, cuda_detect,
-                                           cuda_sift, cuda_warp)
+                                           cuda_sift, cuda_slab_probe,
+                                           cuda_warp)
 
     def boom():
         raise AssertionError("kernel library requested for a CPU tensor")
 
     monkeypatch.setattr(cuda_build, "load_library", boom)
     n0, w0 = cuda_detect.launch_count, cuda_warp.launch_count
-    s0 = cuda_sift.launch_count
+    s0, p0 = cuda_sift.launch_count, cuda_slab_probe.launch_count
     img = torch.rand(1, 32, 40) * 255
     maps = cuda_detect.detect_maps(img, 20.0)
     assert all(m.shape == img.shape for m in maps)
@@ -157,12 +158,16 @@ def test_cpu_wrappers_never_build(monkeypatch):
         torch.zeros(1, 2, dtype=torch.int32),
         torch.tensor([[0.0, 0.0, 29.0, 19.0]]), (20, 30), "plane")
     assert out.shape == (1, 20, 30, 3) and bool(valid.all())
+    probe = cuda_slab_probe.slab_probe(torch.rand(3, 64, 512), 16, False, 4)
+    assert probe.shape == (8, 128)
     assert (cuda_detect.launch_count, cuda_warp.launch_count,
-            cuda_sift.launch_count) == (n0, w0, s0)
+            cuda_sift.launch_count, cuda_slab_probe.launch_count) == \
+        (n0, w0, s0, p0)
 
 
 def test_kernel_wrappers_refuse_other_devices():
-    from imagestitch_tpu_torch.ops import cuda_detect, cuda_sift, cuda_warp
+    from imagestitch_tpu_torch.ops import (cuda_detect, cuda_sift,
+                                           cuda_slab_probe, cuda_warp)
     meta = torch.empty(1, 8, 8, device="meta")
     with pytest.raises(ValueError):
         cuda_detect.detect_maps(meta, 20.0)
@@ -171,3 +176,6 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         cuda_warp.warp_batched(meta[..., None], torch.eye(3)[None], 1.0,
                                torch.zeros(1, 2), torch.zeros(1, 4), (4, 4))
+    with pytest.raises(ValueError):
+        cuda_slab_probe.slab_probe(torch.empty(3, 64, 512, device="meta"),
+                                   16, False, 4)

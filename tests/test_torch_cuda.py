@@ -16,7 +16,8 @@ from imagestitch_tpu_torch import (DetectorConfig, PipelineConfig,  # noqa
                                    WarpConfig, stitch_pair)
 from imagestitch_tpu_torch.convert import cameras_from_numpy  # noqa: E402
 from imagestitch_tpu_torch.ops import (cuda_detect, cuda_sift,  # noqa: E402
-                                       cuda_warp)
+                                       cuda_slab_probe, cuda_warp)
+from imagestitch_tpu_torch.ops import slab_probe  # noqa: E402
 from imagestitch_tpu_torch.pipeline import (_pano_canvas_shape,  # noqa
                                             warp_inputs)
 from imagestitch_tpu_torch.utils.io import synthetic_rotation_pair  # noqa
@@ -102,6 +103,26 @@ def test_warp_kernel_matches_plain(cuda, kind, mixed):
     both = vk & vp
     assert bool(both.any())
     assert float((ok - op).abs()[both].max()) <= 1e-2
+
+
+@pytest.mark.parametrize("h", [16, 24, 32, 48])
+@pytest.mark.parametrize("tiled", [False, True], ids=["planar", "tiled"])
+def test_slab_probe_kernel_matches_plain(cuda, h, tiled):
+    """The slab-load probe's bulk-copy kernel equals its plain version bit
+    for bit (the same float32 sums in chunk order) on a seeded 1080x1920x3
+    source, one launch each. The output is the last step's sum, so every
+    grid of 1-32 steps, and 100, 467 and the full 468, holds another step's
+    eight origins against the plain version."""
+    rng = np.random.default_rng(0)
+    planar = torch.as_tensor(rng.random((3, 1080, 1920)).astype(
+        np.float32), device=cuda)
+    src = slab_probe.to_tiled(planar) if tiled else planar
+    for steps in (*range(1, 33), 100, 467, slab_probe.STEPS):
+        n0 = cuda_slab_probe.launch_count
+        k = cuda_slab_probe.slab_probe_cuda(src, h, tiled, steps)
+        assert cuda_slab_probe.launch_count == n0 + 1
+        p = slab_probe.slab_probe_plain(src, h, tiled, steps)
+        assert torch.equal(k, p)
 
 
 @pytest.mark.parametrize("kind,launches", [("orb", (10, 0, 1)),
