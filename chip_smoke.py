@@ -17,7 +17,16 @@ result line is printed):
                 geometry (cylindrical, N=2, 1080x1920x3 into 1458x4032),
                 spherical and plane at 480x640, and a mixed-size pair.
                 Masks agree except within 1e-3 px of the validity boundary;
-                values agree within 1e-2 where both are valid.
+                values agree within 1e-2 where both are valid. Then, at the
+                main-path shapes: ms, the kernel alone (its arguments
+                checked and its outputs allocated outside the window) with
+                L2 flushed by a 256 MB write before each call, the CUDA-
+                event median of 20 single calls; warm_ms, the kernel alone
+                over 20 back-to-back calls; wrapper_ms, warp_batched_cuda
+                whole over 20 back-to-back calls; plain_ms; library_ms and
+                library_warm_ms, F.grid_sample on precomputed maps, read as
+                ms and warm_ms; fill_ms, zeros written into same-shaped
+                canvases and masks, flushed (the outputs' write alone).
 5. sift_maps  — the SIFT octave-maps kernel against its plain version at
                 the four 1080p octave shapes (the first octave and three
                 later ones): the same nonzero score support, all five maps
@@ -76,10 +85,12 @@ FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 # NMS 11, Harris 2 gradients + 3 products + 3 x 12 box adds + 8 (49),
 # blur 2 x (7 mul + 6 add) (26)
 DETECT_OPS_PER_PX = 384 + 11 + 49 + 26
-# warp float32 operations per canvas pixel and image: 2 divides by scale,
-# 2 sincos (~20 each), 15 for the 3x3 projection, 2 divides, 8 compares,
-# 3 channels x 6 for the bilinear blend
-WARP_OPS_PER_PX = 2 + 40 + 15 + 2 + 8 + 18
+# warp float32 operations per canvas pixel and image: 15 for the 3x3
+# projection, 2 divides, 8 compares, 3 channels x 6 for the bilinear
+# blend; per canvas column (and per row) and image: a divide by scale and
+# a sincos (~20 each)
+WARP_OPS_PER_PX = 15 + 2 + 8 + 18
+WARP_OPS_PER_LINE = 1 + 40
 # SIFT octave maps, float32 operations per octave pixel beyond the blurs:
 # S+2 DoG differences, S+1 levels x 2 gradients x (difference, halving),
 # per interior layer 26 x 2 comparisons + |D| and the contrast test + 18
@@ -210,45 +221,11 @@ def phase_detect(state):
           "plain_ms_per_stitch": plain, "bound_ms": b_ms})
 
 
-def _near_boundary(k_rinvs, scale, corner, roi_uvs, canvas_hw, kind, sizes):
-    """Pixels whose float64 source coordinate lies within 1e-3 px of the
-    in-image boundary (or whose ray is near z = 0): float32 rounding may
-    put them on either side."""
-    import math
-    import torch
-    Hc, Wc = canvas_hw
-    dev = k_rinvs.device
-    out = []
-    s = float(scale)
-    for i in range(k_rinvs.shape[0]):
-        M = k_rinvs[i].double()
-        u = (torch.arange(Wc, dtype=torch.float64, device=dev)
-             + float(corner[0]))[None, :].expand(Hc, Wc) / s
-        v = (torch.arange(Hc, dtype=torch.float64, device=dev)
-             + float(corner[1]))[:, None].expand(Hc, Wc) / s
-        if kind == "cylindrical":
-            X, Y, Z = torch.sin(u), v, torch.cos(u)
-        elif kind == "spherical":
-            sv = torch.sin(math.pi - v)
-            X, Y, Z = sv * torch.sin(u), torch.cos(math.pi - v), \
-                sv * torch.cos(u)
-        else:
-            X, Y, Z = u, v, torch.ones_like(u)
-        px = M[0, 0] * X + M[0, 1] * Y + M[0, 2] * Z
-        py = M[1, 0] * X + M[1, 1] * Y + M[1, 2] * Z
-        pz = M[2, 0] * X + M[2, 1] * Y + M[2, 2] * Z
-        xs, ys = px / pz, py / pz
-        h, w = sizes[i]
-        d = torch.stack([xs.abs(), (xs - (w - 1)).abs(), ys.abs(),
-                         (ys - (h - 1)).abs()]).amin(0)
-        out.append((d < 1e-3) | (pz.abs() < 1e-6))
-    return torch.stack(out)
-
-
 def _compare_warp(case, imgs, k_rinvs, scale, corner, roi_uvs, canvas_hw,
                   kind, src_sizes=None):
     import torch
     from imagestitch_tpu_torch.ops.cuda_warp import warp_batched_cuda
+    from imagestitch_tpu_torch.testing import near_validity_boundary
     from imagestitch_tpu_torch.warp.warper import warp_batched_plain
     n = imgs.shape[0]
     corners = corner.expand(n, 2)
@@ -260,8 +237,8 @@ def _compare_warp(case, imgs, k_rinvs, scale, corner, roi_uvs, canvas_hw,
     (out_k, val_k), (out_p, val_p) = ok_k, ok_p
     sizes = ([tuple(imgs.shape[1:3])] * n if src_sizes is None
              else [tuple(int(x) for x in s) for s in src_sizes])
-    near = _near_boundary(k_rinvs, scale, corner, roi_uvs, canvas_hw, kind,
-                          sizes)
+    near = near_validity_boundary(k_rinvs, scale, corners, canvas_hw, kind,
+                                  sizes)
     mism = val_k != val_p
     bad = int((mism & ~near).sum())
     both = val_k & val_p
@@ -334,10 +311,21 @@ def phase_warp(state):
     results.append(_compare_warp("mixed_sizes", imgs_m, kr, scale, cn, ru,
                                  cv, "cylindrical", sizes))
 
-    # timing at the main-path shapes
+    # timing at the main-path shapes: the kernel alone (its arguments
+    # packed and its outputs allocated outside the window) warm, back to
+    # back, and with L2 flushed before each call; the whole wrapper; the
+    # plain version; grid_sample on precomputed maps, warm and flushed
+    from imagestitch_tpu_torch.ops.cuda_warp import warp_launcher
+    from imagestitch_tpu_torch.utils.timing import FLUSH_BYTES, median_ms
+    dev = torch.device("cuda")
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     imgs, k_rinvs, scale, corners, roi_uvs, canvas = main
-    ms = cuda_ms(lambda: warp_batched_cuda(imgs, k_rinvs, scale, corners,
-                                           roi_uvs, canvas, "cylindrical"))
+    launch, _, _ = warp_launcher(imgs, k_rinvs, scale, corners, roi_uvs,
+                                 canvas, "cylindrical")
+    warm = cuda_ms(launch)
+    cold = median_ms(launch, N_TIMED, dev, flush)
+    wrapper = cuda_ms(lambda: warp_batched_cuda(
+        imgs, k_rinvs, scale, corners, roi_uvs, canvas, "cylindrical"))
     plain = cuda_ms(lambda: warp_batched_plain(
         imgs, k_rinvs, scale, corners, roi_uvs, canvas, "cylindrical"),
         iters=5)
@@ -355,20 +343,36 @@ def phase_warp(state):
                                   ym / (1080 - 1) * 2 - 1], dim=-1))
     grid = torch.stack(grids).contiguous()
     src_cf = imgs.permute(0, 3, 1, 2).contiguous()
-    lib = cuda_ms(lambda: F.grid_sample(src_cf, grid, mode="bilinear",
-                                        padding_mode="zeros",
-                                        align_corners=True))
+
+    def lib_call():
+        return F.grid_sample(src_cf, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    lib_warm = cuda_ms(lib_call)
+    lib_cold = median_ms(lib_call, N_TIMED, dev, flush)
+    # what writing the outputs alone takes: zeros into same-shaped
+    # canvases and masks (two fills), L2 flushed
+    out_z = torch.empty((2, Hc, Wc, 3), dtype=torch.float32, device=dev)
+    val_z = torch.empty((2, Hc, Wc), dtype=torch.bool, device=dev)
+    fill_ms = median_ms(lambda: (out_z.zero_(), val_z.zero_()), N_TIMED,
+                        dev, flush)
+    del flush, out_z, val_z
     nbytes = imgs.numel() * 4 + 2 * Hc * Wc * (3 * 4 + 1)
-    b_ms, b_by = bound_ms(nbytes, WARP_OPS_PER_PX * 2 * Hc * Wc)
+    b_ms, b_by = bound_ms(nbytes, 2 * (WARP_OPS_PER_PX * Hc * Wc
+                                       + WARP_OPS_PER_LINE * (Hc + Wc)))
     state["k2"] = {
         "name": "warp_batched", "route": "cuda",
         "source": "imagestitch_tpu_torch/csrc/warp.cu",
         "replaces": "imagestitch_tpu/ops/pallas_warp.py:426",
         "max_abs_err": max(r["max_abs_err"] for r in results),
-        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib}
-    emit({"phase": "warp", "cases": results, "ms": ms, "plain_ms": plain,
-          "library_ms": lib, "bound_ms": b_ms})
+        "ms": cold, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_cold, "case": "kernel alone, L2 flushed",
+        "warm_ms": warm, "wrapper_ms": wrapper, "library_warm_ms": lib_warm,
+        "fill_ms": fill_ms}
+    emit({"phase": "warp", "cases": results, "ms": cold, "warm_ms": warm,
+          "wrapper_ms": wrapper, "plain_ms": plain, "library_ms": lib_cold,
+          "library_warm_ms": lib_warm, "fill_ms": fill_ms, "bound_ms": b_ms,
+          "card": state["name"], "smi": state["smi"]})
 
 
 def _sift_octave_bases(gray, n_octaves: int = 4):

@@ -1,0 +1,46 @@
+"""Test support for the port's kernels: what the tests and
+`chip_smoke.py` use to hold a kernel's output against its plain version.
+Nothing on the stitching path imports it."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def near_validity_boundary(k_rinvs: torch.Tensor, scale, corners,
+                           canvas_hw: tuple[int, int], kind: str, sizes,
+                           tol: float = 1e-3) -> torch.Tensor:
+    """(N, Hc, Wc) bool: canvas pixels whose float64 source coordinate lies
+    within `tol` px of the in-image boundary of its (h, w) in `sizes`, or
+    whose ray is near z = 0. float32 rounding may put these on either side
+    of the validity test, so two warps' masks may differ there."""
+    Hc, Wc = canvas_hw
+    dev = k_rinvs.device
+    s = float(scale)
+    out = []
+    for i in range(k_rinvs.shape[0]):
+        M = k_rinvs[i].double()
+        cx, cy = (float(c) for c in corners[i])
+        u = (torch.arange(Wc, dtype=torch.float64, device=dev)
+             + cx)[None, :].expand(Hc, Wc) / s
+        v = (torch.arange(Hc, dtype=torch.float64, device=dev)
+             + cy)[:, None].expand(Hc, Wc) / s
+        if kind == "cylindrical":
+            X, Y, Z = torch.sin(u), v, torch.cos(u)
+        elif kind == "spherical":
+            sv = torch.sin(math.pi - v)
+            X, Y, Z = sv * torch.sin(u), torch.cos(math.pi - v), \
+                sv * torch.cos(u)
+        else:
+            X, Y, Z = u, v, torch.ones_like(u)
+        px = M[0, 0] * X + M[0, 1] * Y + M[0, 2] * Z
+        py = M[1, 0] * X + M[1, 1] * Y + M[1, 2] * Z
+        pz = M[2, 0] * X + M[2, 1] * Y + M[2, 2] * Z
+        xs, ys = px / pz, py / pz
+        h, w = (int(x) for x in sizes[i])
+        d = torch.stack([xs.abs(), (xs - (w - 1)).abs(), ys.abs(),
+                         (ys - (h - 1)).abs()]).amin(0)
+        out.append((d < tol) | (pz.abs() < 1e-6))
+    return torch.stack(out)

@@ -20,9 +20,7 @@ is timed on the host clock.
 from __future__ import annotations
 
 import argparse
-import statistics
 import sys
-import time
 
 import numpy as np
 import torch
@@ -31,12 +29,11 @@ from imagestitch_tpu_torch.ops.cuda_slab_probe import slab_probe
 from imagestitch_tpu_torch.ops.slab_probe import (NCH, SLAB_W, STEPS,
                                                   to_tiled)
 from imagestitch_tpu_torch.pipeline import resolve_device
+from imagestitch_tpu_torch.utils.timing import FLUSH_BYTES, median_ms
 
 H, W, C = 1080, 1920, 3
 HS = (16, 24, 32, 48)
 SEED = 0
-FLUSH_BYTES = 256 << 20     # > 5x the H100's 50 MB L2
-_SLEEP_CYCLES = 2_000_000   # ~1 ms: the host enqueues the call meanwhile
 
 
 def source(device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -50,38 +47,6 @@ def source(device) -> tuple[torch.Tensor, torch.Tensor]:
 def slab_gb(h: int, steps: int = STEPS) -> float:
     """GB of slabs one probe call copies."""
     return steps * NCH * C * h * SLAB_W * 4 / 1e9
-
-
-def median_ms(fn, reps: int, device: torch.device,
-              flush: torch.Tensor | None = None) -> float:
-    """Median ms of one fn() call over `reps`, after one warm-up call; with
-    `flush`, the buffer is written before each call. On the card: CUDA
-    events around the call alone, the stream held by a sleep kernel so
-    that the host's launch time stays outside them. On the CPU: the host
-    clock."""
-    fn()
-    if device.type != "cuda":
-        ts = []
-        for i in range(reps):
-            if flush is not None:
-                flush.fill_(float(i))
-            t0 = time.perf_counter()
-            fn()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return float(statistics.median(ts))
-    pairs = []
-    for i in range(reps):
-        if flush is not None:
-            flush.fill_(float(i))
-        torch.cuda._sleep(_SLEEP_CYCLES)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        pairs.append((e0, e1))
-    torch.cuda.synchronize()
-    return float(statistics.median(e0.elapsed_time(e1) for e0, e1 in pairs))
 
 
 def run(device=None, hs=HS, steps: int = STEPS, reps: int = 20,

@@ -21,6 +21,7 @@ from imagestitch_tpu_torch.ops import slab_probe  # noqa: E402
 from imagestitch_tpu_torch.pipeline import (_pano_canvas_shape,  # noqa
                                             warp_inputs)
 from imagestitch_tpu_torch.utils.io import synthetic_rotation_pair  # noqa
+from imagestitch_tpu_torch.testing import near_validity_boundary  # noqa
 from imagestitch_tpu_torch.warp.warper import warp_batched_plain  # noqa
 
 torch.set_num_threads(2)
@@ -103,6 +104,92 @@ def test_warp_kernel_matches_plain(cuda, kind, mixed):
     both = vk & vp
     assert bool(both.any())
     assert float((ok - op).abs()[both].max()) <= 1e-2
+
+
+def _yaw_warp_args(dev, n, h, w, c, canvas=None, shift=(0, 0),
+                   kind="cylindrical", focal=None):
+    """Seeded (n, h, w[, c]) images (c = 1: (n, h, w)) under cameras
+    spread in yaw; the canvas defaults to the pipeline's, and `shift`
+    moves the canvas origin up and left of the ROIs' union."""
+    rng = np.random.default_rng(n * 1000 + h + c)
+    shape = (n, h, w) if c == 1 else (n, h, w, c)
+    imgs = torch.as_tensor(rng.uniform(0, 255, shape).astype(np.float32),
+                           device=dev)
+    focal = focal or 1.5 * w
+    yaw = np.linspace(-0.1, 0.1, n) if n > 1 else np.zeros(1)
+    R = np.stack([[[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                   [-np.sin(a), 0, np.cos(a)]] for a in yaw])
+    cams = cameras_from_numpy(dict(
+        focal=np.full(n, focal), aspect=np.ones(n), ppx=np.full(n, w / 2),
+        ppy=np.full(n, h / 2), R=R, t=np.zeros((n, 3))), device=dev)
+    cfg = PipelineConfig(warp=WarpConfig(kind=kind))
+    canvas = canvas or _pano_canvas_shape((h, w), n, cfg)
+    scale = torch.tensor(float(focal), device=dev)
+    kr, corner, roi, _ = warp_inputs(cams, scale, (h, w), n, canvas, cfg)
+    corner = corner - torch.tensor(shift, dtype=torch.int32, device=dev)
+    return imgs, kr, scale, corner.expand(n, 2), roi, canvas, kind
+
+
+@pytest.mark.parametrize("case", [
+    dict(n=2, h=60, w=80, c=1),
+    dict(n=1, h=60, w=80, c=3),
+    dict(n=3, h=60, w=80, c=3),
+    dict(n=2, h=60, w=80, c=3, canvas=(97, 167)),
+    dict(n=2, h=60, w=80, c=1, canvas=(97, 171), kind="spherical"),
+    dict(n=2, h=60, w=80, c=3, canvas=(256, 700), shift=(200, 80)),
+    dict(n=2, h=60, w=80, c=3, canvas=(256, 701), shift=(200, 80),
+         kind="plane"),
+    dict(n=2, h=1080, w=1920, c=3, canvas=(1458, 4032), focal=1728.0),
+], ids=["c1", "n1", "n3", "wc167", "c1_wc171_spherical", "outside_roi",
+        "outside_roi_wc701_plane", "main_1080p"])
+def test_warp_kernel_cases_match_plain(cuda, case):
+    """The warp kernel against its plain version: one channel, one and
+    three images, canvases whose width is no multiple of 4 (unaligned
+    rows), canvases with whole 128x16 tiles outside every ROI, and the
+    main path's 1080p shapes. Masks equal except within 1e-3 px of the
+    validity boundary; values within 1e-2 where both are valid; zeros
+    wherever the kernel's mask is false; one launch."""
+    imgs, kr, scale, corners, roi, canvas, kind = _yaw_warp_args(cuda,
+                                                                 **case)
+    n0 = cuda_warp.launch_count
+    ok, vk = cuda_warp.warp_batched_cuda(imgs, kr, scale, corners, roi,
+                                         canvas, kind)
+    assert cuda_warp.launch_count == n0 + 1
+    x = imgs[..., None] if imgs.ndim == 3 else imgs
+    op, vp = warp_batched_plain(x, kr, scale, corners, roi, canvas, kind)
+    if imgs.ndim == 3:
+        op = op[..., 0]
+    assert ok.shape == op.shape and vk.shape == vp.shape
+    n, h, w = imgs.shape[:3]
+    near = near_validity_boundary(kr, scale, corners, canvas, kind,
+                                  [(h, w)] * n)
+    assert int(((vk != vp) & ~near).sum()) == 0
+    both = vk & vp
+    assert bool(both.any())
+    assert float((ok - op).abs()[both].max()) <= 1e-2
+    dead = ~vk[..., None] if ok.ndim == 4 else ~vk
+    assert float(ok.abs().masked_select(dead).max()) == 0.0
+    if "shift" in case:       # whole tiles outside the ROI: all zero
+        assert not bool(vk[:, :, :128].any())
+
+
+def test_warp_wrapper_launches_only_the_kernel(cuda):
+    """On the main path (a 0-d scale tensor, corners as an expanded int32
+    view, k_rinvs and roi_uvs from warp_inputs) a warp_batched_cuda call
+    runs exactly one CUDA kernel, the warp, and no copy or fill."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    args = _yaw_warp_args(cuda, 2, 60, 80, 3)
+    cuda_warp.warp_batched_cuda(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            cuda_warp.warp_batched_cuda(*args)
+        torch.cuda.synchronize()
+    dev_events = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    assert len(dev_events) == 3, dev_events
+    assert all("warp_kernel" in name for name in dev_events), dev_events
 
 
 @pytest.mark.parametrize("h", [16, 24, 32, 48])
