@@ -9,10 +9,14 @@ result line is printed):
 1. device     — card name, `nvidia-smi` name and power limit.
 2. build      — nvcc builds the kernels of imagestitch_tpu_torch/csrc into
                 build/ (seconds, ptxas register report).
-3. detect     — the detector-maps kernel against its plain version at the
-                five 1080p pyramid level shapes, B=2: FAST/NMS equal
-                everywhere, Harris within 1e-4·max|Harris|, blur within
-                1e-3 intensity.
+3. detect     — the detector-maps kernel against its plain version on both
+                views' five 1080p pyramid levels, one launch per view for
+                all levels (B=1, as the main path) and one per level at
+                B=2: FAST/NMS equal everywhere, Harris within
+                1e-4·max|Harris|, blur within 1e-3 intensity, each map's
+                max error. Then one stitch's detect work: the wrapper, the
+                plain version, the share of pixels past FAST's compass
+                test (the kernel alone: phase 12).
 4. warp       — the warp kernel against its plain version: the main-path
                 geometry (cylindrical, N=2, 1080x1920x3 into 1458x4032),
                 spherical and plane at 480x640, and a mixed-size pair.
@@ -30,7 +34,9 @@ result line is printed):
 5. sift_maps  — the SIFT octave-maps kernel against its plain version at
                 the four 1080p octave shapes (the first octave and three
                 later ones): the same nonzero score support, all five maps
-                within 1e-4; then its time for one SIFT stitch (8 calls).
+                within 1e-4; then one SIFT stitch's octave maps (8 calls,
+                92 CUDA kernels) through the wrapper, and the plain
+                version (the kernels alone: phase 12).
 6. dma_layouts — the slab-load probe kernel against its plain version on
                 the seeded 1080x1920x3 source, 468 steps, planar and tiled,
                 h = 16, 24, 32, 48: equal bit for bit (max error 0), also
@@ -45,7 +51,7 @@ result line is printed):
 9. main_path  — stitch_pair with the default PipelineConfig on the 1080p
                 rotation pair and the 1080p translation pair: h_valid,
                 plausible focal / warped offset / pano width, and the
-                kernels' launch counts (detector maps 10, warp 1, SIFT 0,
+                kernels' launch counts (detector maps 2, warp 1, SIFT 0,
                 slab probe 0 per stitch). Then the median wall time of warm
                 stitches.
 10. sift_path — stitch_pair with DetectorConfig(kind="sift") on the 1080p
@@ -56,8 +62,13 @@ result line is printed):
                 stitch), the median wall time of warm stitches.
 11. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
                 of the 1080p SIFT plane stitch, and the device's busy share
-                of one stitch of each (torch.profiler).
-12. kernels   — one line {"kernels": [...]}: launches on each kernel's
+                of one stitch of each (torch.profiler, after the timing).
+12. kernel_times — K1's and K3's work for one stitch, the kernels alone from
+                torch.profiler kernel events (median of 20 rounds) with L2
+                flushed by a 256 MB write and warm; K1 also as ten
+                one-level launches. Last, since once the profiler has
+                traced the card, later launches cost the host more.
+13. kernels   — one line {"kernels": [...]}: launches on each kernel's
                 path, error against the plain version, kernel / plain /
                 library ms and the least time the card could take
                 (bound_ms).
@@ -80,11 +91,14 @@ sys.path.insert(0, HERE)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
-# detector-maps float32 operations per pixel: FAST 16 differences + 16
-# nine-long windows x (8 min + 8 max) + 16 x 7 threshold/select/max (384),
-# NMS 11, Harris 2 gradients + 3 products + 3 x 12 box adds + 8 (49),
-# blur 2 x (7 mul + 6 add) (26)
-DETECT_OPS_PER_PX = 384 + 11 + 49 + 26
+# detector-maps float32 operations per pixel, at most: FAST 16
+# differences, the arcs' min and max with neighbouring arcs sharing their
+# eight common ring pixels (a doubling tree over them, 3 x 16; the two
+# end pixels, 16; the better of each pair and the best pair, 32) and the
+# threshold (6): 118, which the compass test skips on most pixels; NMS
+# 11; Harris 2 gradients + 3 products + 3 x 12 box adds + 8 (49); blur
+# 2 x (7 mul + 6 add) (26). The bytes bound the kernel either way.
+DETECT_OPS_PER_PX = 118 + 11 + 49 + 26
 # warp float32 operations per canvas pixel and image: 15 for the 3x3
 # projection, 2 divides, 8 compares, 3 channels x 6 for the bilinear
 # blend; per canvas column (and per row) and image: a divide by scale and
@@ -176,8 +190,16 @@ def _rotation_pair_1080():
 
 
 def phase_detect(state):
+    """K1 on both views' 1080p five-level pyramids: the multi-level launch
+    (B=1 per view, as the main path runs it) and the one-level launch at
+    B=2, each level against the plain version. Then one stitch's detect
+    work (both views' five levels): the wrapper calls in CUDA events
+    (wrapper_ms), the plain version, and the share of pixels that pass
+    the kernel's FAST compass test. The kernel alone is timed in phase
+    kernel_times, after the stitches."""
     import torch
     from imagestitch_tpu_torch.ops.cuda_detect import (detect_maps_cuda,
+                                                       detect_maps_levels,
                                                        detect_maps_plain)
     from imagestitch_tpu_torch.ops.image import rgb_to_gray
     from imagestitch_tpu_torch.ops.pyramid import build_pyramid
@@ -185,40 +207,73 @@ def phase_detect(state):
     rgb = torch.stack([torch.as_tensor(img1), torch.as_tensor(img2)])
     gray = rgb_to_gray(rgb.cuda().float())
     levels = [lv.contiguous() for lv in build_pyramid(gray, 5, 1.3)]
-    worst = {"nms": 0.0, "harris_rel": 0.0, "blur": 0.0}
-    max_abs = 0.0
+    views = [[lv[b:b + 1].contiguous() for lv in levels] for b in range(2)]
+    worst = {"nms": 0.0, "harris": 0.0, "harris_rel": 0.0, "blur": 0.0}
+    for pyr in views:
+        for lv, k in zip(pyr, detect_maps_levels(pyr, 20.0)):
+            _hold_detect(k, detect_maps_plain(lv, 20.0), tuple(lv.shape),
+                         worst)
     for lv in levels:
-        k = detect_maps_cuda(lv, 20.0)
-        p = detect_maps_plain(lv, 20.0)
-        torch.cuda.synchronize()
-        check(torch.equal(k[0], p[0]),
-              f"FAST/NMS differs at {tuple(lv.shape)}: "
-              f"{int((k[0] != p[0]).sum())} pixels")
-        h_err = float((k[1] - p[1]).abs().max())
-        h_rel = h_err / max(float(p[1].abs().max()), 1e-30)
-        b_err = float((k[2] - p[2]).abs().max())
-        check(h_rel <= 1e-4, f"Harris rel err {h_rel} at {tuple(lv.shape)}")
-        check(b_err <= 1e-3, f"blur err {b_err} at {tuple(lv.shape)}")
-        worst["harris_rel"] = max(worst["harris_rel"], h_rel)
-        worst["blur"] = max(worst["blur"], b_err)
-        max_abs = max(max_abs, b_err, h_err)
+        _hold_detect(detect_maps_cuda(lv, 20.0), detect_maps_plain(lv, 20.0),
+                     tuple(lv.shape), worst)
 
-    # main-path work per stitch: 5 levels x 2 images, one launch each
-    singles = [lv[b:b + 1].contiguous() for lv in levels for b in range(2)]
-    ms = cuda_ms(lambda: [detect_maps_cuda(x, 20.0) for x in singles])
-    plain = cuda_ms(lambda: [detect_maps_plain(x, 20.0) for x in singles],
-                    iters=5)
-    px = sum(x.numel() for x in singles)
+    def stitch():
+        return [detect_maps_levels(pyr, 20.0) for pyr in views]
+
+    def one_level():
+        return [detect_maps_cuda(x, 20.0) for pyr in views for x in pyr]
+
+    state["k1_calls"] = (stitch, one_level)
+    wrapper = cuda_ms(stitch)
+    plain = cuda_ms(lambda: [detect_maps_plain(x, 20.0) for pyr in views
+                             for x in pyr], iters=5)
+    px = sum(x.numel() for pyr in views for x in pyr)
     b_ms, b_by = bound_ms(16.0 * px, DETECT_OPS_PER_PX * px)
+    passed = sum(int(_compass_pass(x[0], 20.0).sum()) for pyr in views
+                 for x in pyr)
     state["k1"] = {
         "name": "detect_maps", "route": "cuda",
         "source": "imagestitch_tpu_torch/csrc/detect_maps.cu",
         "replaces": "imagestitch_tpu/ops/pallas_detect.py:136",
-        "max_abs_err": max_abs, "ms": ms, "plain_ms": plain,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        "max_abs_err": max(worst["nms"], worst["harris"], worst["blur"]),
+        "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "case": "kernel alone, L2 flushed",
+        "wrapper_ms": wrapper}
     emit({"phase": "detect", "shapes": [list(lv.shape) for lv in levels],
-          "nms_equal": True, **worst, "ms_per_stitch": ms,
-          "plain_ms_per_stitch": plain, "bound_ms": b_ms})
+          "nms_equal": True, "max_abs_err": worst, "wrapper_ms": wrapper,
+          "plain_ms": plain, "bound_ms": b_ms,
+          "bound_by": b_by, "mpx_per_stitch": px / 1e6,
+          "compass_pass_share": passed / px,
+          "card": state["name"], "smi": state["smi"]})
+
+
+def _compass_pass(img, t):
+    """Pixels of an (H, W) image that pass the kernel's FAST compass test:
+    two neighbouring ring pixels of 0, 4, 8, 12 both brighter than t, or
+    both darker than -t (the differences wrap around the image)."""
+    import torch
+    d = [torch.roll(img, (-dy, -dx), (0, 1)) - img
+         for dx, dy in ((0, -3), (3, 0), (0, 3), (-3, 0))]
+    out = torch.zeros_like(img, dtype=torch.bool)
+    for i in range(4):
+        a, b = d[i], d[(i + 1) % 4]
+        out |= ((a > t) & (b > t)) | ((a < -t) & (b < -t))
+    return out
+
+
+def _hold_detect(k, p, shape, worst):
+    """FAST/NMS equal, Harris within 1e-4·max|Harris|, blur within 1e-3;
+    each map's max error folded into `worst`."""
+    import torch
+    check(torch.equal(k[0], p[0]), f"FAST/NMS differs at {shape}: "
+          f"{int((k[0] != p[0]).sum())} pixels")
+    h_err = float((k[1] - p[1]).abs().max())
+    h_rel = h_err / max(float(p[1].abs().max()), 1e-30)
+    b_err = float((k[2] - p[2]).abs().max())
+    check(h_rel <= 1e-4, f"Harris rel err {h_rel} at {shape}")
+    check(b_err <= 1e-3, f"blur err {b_err} at {shape}")
+    for key, v in (("harris", h_err), ("harris_rel", h_rel), ("blur", b_err)):
+        worst[key] = max(worst[key], v)
 
 
 def _compare_warp(case, imgs, k_rinvs, scale, corner, roi_uvs, canvas_hw,
@@ -418,9 +473,14 @@ def phase_sift_maps(state):
         cases.append({"shape": shape, "first": first,
                       "extrema": int((p[1] > 0).sum())})
 
-    # one SIFT stitch: 4 octaves x 2 images, one call each
-    ms = cuda_ms(lambda: [sift_octave_maps_cuda(b, f, SIFT_S, 1.6, ct)
-                          for b, f in calls])
+    # one SIFT stitch: 4 octaves x 2 images, one call each: the wrapper
+    # here, the kernels alone in phase kernel_times
+    def stitch():
+        return [sift_octave_maps_cuda(b, f, SIFT_S, 1.6, ct)
+                for b, f in calls]
+
+    state["k3_call"] = stitch
+    wrapper = cuda_ms(stitch)
     plain = cuda_ms(lambda: [sift_octave_maps_plain(b, f, SIFT_S, 1.6, ct)
                              for b, f in calls], iters=3, warmup=1)
     nbytes = ops = 0.0
@@ -436,11 +496,12 @@ def phase_sift_maps(state):
         "name": "sift_octave_maps", "route": "cuda",
         "source": "imagestitch_tpu_torch/csrc/sift_octave.cu",
         "replaces": "imagestitch_tpu/ops/pallas_sift.py:172",
-        "max_abs_err": max(worst.values()), "ms": ms, "plain_ms": plain,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        "max_abs_err": max(worst.values()), "plain_ms": plain,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "case": "kernels alone, L2 flushed", "wrapper_ms": wrapper}
     emit({"phase": "sift_maps", "cases": cases, "support_equal": True,
-          "max_abs_err": worst, "ms_per_stitch": ms,
-          "plain_ms_per_stitch": plain, "bound_ms": b_ms,
+          "max_abs_err": worst, "wrapper_ms": wrapper, "plain_ms": plain,
+          "bound_ms": b_ms,
           "octave_px_per_stitch": int(sum(b.numel() for b, _ in calls)),
           "mbytes_per_stitch": nbytes / 1e6,
           "card": state["name"], "smi": state["smi"]})
@@ -623,7 +684,7 @@ def phase_main_path(state):
     results = {name: stitch_pair(a, b) for name, a, b in pairs}
     torch.cuda.synchronize()
     launches = _read_counts()
-    want = {"detect_maps": 10 * len(pairs), "sift_octave_maps": 0,
+    want = {"detect_maps": 2 * len(pairs), "sift_octave_maps": 0,
             "warp_batched": len(pairs), "slab_probe": 0}
     check(launches == want, f"kernel launches {launches}, want {want}")
     state["k1"]["launches"] = launches["detect_maps"]
@@ -705,6 +766,37 @@ def phase_sift_path(state):
     emit({"phase": "sift_path", "launches": launches, "pairs": summary,
           "timed": "translation, plane warp",
           "wall_ms_median": walls[len(walls) // 2], "wall_ms": walls,
+          "card": state["name"], "smi": state["smi"]})
+
+
+def phase_kernel_times(state):
+    """K1 and K3 alone for one stitch's work, from torch.profiler kernel
+    events, median of 20 rounds: with L2 flushed by a 256 MB write before
+    each round (ms) and without (warm_ms); K1 also as ten one-level
+    launches (one_level_ms, flushed). It runs after every timed stitch:
+    once the profiler has traced the card, later launches cost the host
+    more."""
+    import torch
+    from imagestitch_tpu_torch.utils.timing import FLUSH_BYTES, kernel_ms
+    stitch, one_level = state.pop("k1_calls")
+    sift = state.pop("k3_call")
+    k3_names = ("blur_rows_kernel", "blur_cols_kernel", "octave_maps_kernel")
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    k1 = state["k1"]
+    k1["ms"] = kernel_ms(stitch, N_TIMED, ("detect_maps",), flush)
+    k1["one_level_ms"] = kernel_ms(one_level, N_TIMED, ("detect_maps",),
+                                   flush)
+    k3 = state["k3"]
+    k3["ms"] = kernel_ms(sift, N_TIMED, k3_names, flush)
+    del flush
+    k1["warm_ms"] = kernel_ms(stitch, N_TIMED, ("detect_maps",))
+    k3["warm_ms"] = kernel_ms(sift, N_TIMED, k3_names)
+    emit({"phase": "kernel_times",
+          "detect_maps": {k: k1[k] for k in ("ms", "warm_ms",
+                                              "one_level_ms", "wrapper_ms",
+                                              "bound_ms")},
+          "sift_octave_maps": {k: k3[k] for k in ("ms", "warm_ms",
+                                                   "wrapper_ms", "bound_ms")},
           "card": state["name"], "smi": state["smi"]})
 
 
@@ -810,7 +902,7 @@ def main() -> int:
               ("reference", phase_reference),
               ("sift_reference", phase_sift_reference),
               ("main_path", phase_main_path), ("sift_path", phase_sift_path),
-              ("stages", phase_stages)]
+              ("stages", phase_stages), ("kernel_times", phase_kernel_times)]
     for name, fn in phases:
         try:
             if name == "detect":

@@ -20,7 +20,8 @@ import torch.nn.functional as F
 from imagestitch_tpu_torch.config import DetectorConfig
 from imagestitch_tpu_torch.features.pattern import (
     brief_pattern, brief_pattern_opencv)
-from imagestitch_tpu_torch.ops.cuda_detect import detect_maps
+from imagestitch_tpu_torch.ops.cuda_detect import (MAX_LEVELS,
+                                                   detect_maps_levels)
 from imagestitch_tpu_torch.ops.pyramid import build_pyramid, level_scale
 from imagestitch_tpu_torch.types import ImageFeatures
 
@@ -151,12 +152,17 @@ def detect_and_compute(gray: torch.Tensor,
     quotas = _features_per_level(cfg)
     pyr = build_pyramid(gray, cfg.nlevels, cfg.scale_factor, cfg.first_level)
 
+    # one kernel launch for the whole pyramid (up to MAX_LEVELS levels)
+    maps = [m for i in range(0, len(pyr), MAX_LEVELS)
+            for m in detect_maps_levels(
+                [img_l[None] for img_l in pyr[i:i + MAX_LEVELS]],
+                float(cfg.fast_threshold), cfg.harris_block_size)]
+
     xs, ys, resp, angs, sizes, levels, valids, descs = \
         [], [], [], [], [], [], [], []
-    for lv, img_l in enumerate(pyr):
+    for lv, (img_l, lv_maps) in enumerate(zip(pyr, maps)):
         Hl, Wl = img_l.shape
-        score, harris, blurred = (m[0] for m in detect_maps(
-            img_l[None], float(cfg.fast_threshold), cfg.harris_block_size))
+        score, harris, blurred = (m[0] for m in lv_maps)
 
         # border mask (runByImageBorder with edge_threshold)
         b = cfg.edge_threshold

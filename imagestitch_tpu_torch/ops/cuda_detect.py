@@ -1,11 +1,12 @@
-"""Detector maps of a pyramid level: FAST-9 score with 3x3 NMS, Harris
-response and the 7x7 σ=2 blur, for a batch of (B, H, W) float32 images.
+"""Detector maps of pyramid levels: FAST-9 score with 3x3 NMS, Harris
+response and the 7x7 σ=2 blur, for batches of (B, H, W) float32 images.
 
-On a CUDA tensor `detect_maps` launches the hand-written kernel of
-`csrc/detect_maps.cu` (it replaces the TPU kernel
-`imagestitch_tpu/ops/pallas_detect.py:detect_maps`) or raises; on a CPU
-tensor it runs `detect_maps_plain`, the same function in plain tensor code
-(features/fast.py + ops/image.py). `launch_count` counts kernel launches.
+On CUDA tensors `detect_maps_levels` launches the hand-written kernel of
+`csrc/detect_maps.cu` once for up to 8 levels (it replaces the TPU kernel
+`imagestitch_tpu/ops/pallas_detect.py:detect_maps`) or raises; on CPU
+tensors it runs `detect_maps_plain`, the same function in plain tensor
+code (features/fast.py + ops/image.py), level by level. `detect_maps` is
+its one-level case. `launch_count` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from imagestitch_tpu_torch.ops.image import (gaussian_kernel1d,
 
 BLUR_KSIZE = 7
 BLUR_SIGMA = 2.0
+MAX_LEVELS = 8
 
 launch_count = 0
 
@@ -37,11 +39,14 @@ def detect_maps_plain(img: torch.Tensor, threshold: float,
             sep_filter_planes(img, k, k))
 
 
+@functools.lru_cache(maxsize=None)
 def _fn():
     from imagestitch_tpu_torch.ops.cuda_build import load_library
-    fn = load_library().imagestitch_detect_maps
+    fn = load_library().imagestitch_detect_maps_levels
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p)]
+                   + [ctypes.POINTER(ctypes.c_int)] * 2
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p]
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_float, ctypes.POINTER(ctypes.c_float),
                       ctypes.c_void_p])
@@ -55,44 +60,92 @@ def _taps() -> "ctypes.Array":
     return (ctypes.c_float * BLUR_KSIZE)(*t.numpy().tolist())
 
 
-def detect_maps_cuda(img: torch.Tensor, threshold: float,
-                     block_size: int = 7, k_harris: float = 0.04):
-    """Launch the CUDA kernel on a (B, H, W) float32 contiguous CUDA
-    tensor; returns (nms_score, harris, blurred)."""
+def _check_levels(levels) -> int:
+    """Raise on what the kernel does not take; returns the batch size."""
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f"{len(levels)} levels: the kernel takes 1 to "
+                         f"{MAX_LEVELS}")
+    dev = levels[0].device
+    B = levels[0].shape[0] if levels[0].ndim == 3 else -1
+    for img in levels:
+        if not img.is_cuda or img.device != dev:
+            raise ValueError(f"detect_maps_cuda needs CUDA tensors on one "
+                             f"device, got {img.device} and {dev}")
+        if img.dtype != torch.float32 or img.ndim != 3 or img.shape[0] != B:
+            raise ValueError(f"expected (B, H, W) float32 with one B, got "
+                             f"{img.dtype} {tuple(img.shape)}")
+        if not img.is_contiguous():
+            raise ValueError("detect_maps_cuda needs contiguous tensors")
+        _, H, W = img.shape
+        if H < 4 or W < 4:
+            raise ValueError(f"level {H}x{W} is smaller than the 7-tap blur")
+        if img.numel() >= 2 ** 31:
+            raise ValueError(f"level {tuple(img.shape)} has 2^31 pixels or "
+                             "more")
+    if not 1 <= B <= 65535:
+        raise ValueError(f"batch {B} is not in 1..65535")
+    return B
+
+
+def detect_maps_levels_cuda(levels, threshold: float, block_size: int = 7,
+                            k_harris: float = 0.04):
+    """One kernel launch over a list of (B, H_l, W_l) float32 contiguous
+    CUDA tensors; returns [(nms_score, harris, blurred)] per level, views
+    into one allocation that holds each level's three maps as a block."""
     global launch_count
-    if not img.is_cuda:
-        raise ValueError("detect_maps_cuda needs a CUDA tensor")
-    if img.dtype != torch.float32 or img.ndim != 3:
-        raise ValueError(f"expected (B, H, W) float32, got {img.dtype} "
-                         f"{tuple(img.shape)}")
-    if not img.is_contiguous():
-        raise ValueError("detect_maps_cuda needs a contiguous tensor")
-    B, H, W = img.shape
-    if H < 4 or W < 4:
-        raise ValueError(f"level {H}x{W} is smaller than the 7-tap blur")
+    levels = list(levels)
+    B = _check_levels(levels)
     if block_size % 2 == 0 or not 1 <= block_size <= 7:
         raise ValueError(f"harris block_size {block_size} is not odd <= 7")
-    nms, harris, blur = (torch.empty_like(img) for _ in range(3))
+    sizes = [3 * img.numel() for img in levels]
+    flat = torch.empty(sum(sizes), dtype=torch.float32,
+                       device=levels[0].device)
+    n = len(levels)
+    ptrs = (ctypes.c_void_p * n)(*[img.data_ptr() for img in levels])
+    hs = (ctypes.c_int * n)(*[img.shape[1] for img in levels])
+    ws = (ctypes.c_int * n)(*[img.shape[2] for img in levels])
     s4 = float(np.float32((1.0 / (4 * block_size * 255.0)) ** 4))
-    fn = _fn()
-    taps = _taps()
-    with torch.cuda.device(img.device):
+    with torch.cuda.device(levels[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(img.data_ptr(), nms.data_ptr(), harris.data_ptr(),
-                    blur.data_ptr(), B, H, W, float(threshold), block_size,
-                    float(k_harris), s4, taps, stream)
+        status = _fn()(ptrs, hs, ws, n, B, flat.data_ptr(),
+                       float(threshold), block_size, float(k_harris), s4,
+                       _taps(), stream)
     from imagestitch_tpu_torch.ops.cuda_build import check
     check(status, "detect_maps kernel launch")
     launch_count += 1
-    return nms, harris, blur
+    out, off = [], 0
+    for img, size in zip(levels, sizes):
+        out.append(flat[off:off + size].view((3,) + img.shape).unbind(0))
+        off += size
+    return out
+
+
+def detect_maps_cuda(img: torch.Tensor, threshold: float,
+                     block_size: int = 7, k_harris: float = 0.04):
+    """Launch the CUDA kernel on one (B, H, W) float32 contiguous CUDA
+    tensor; returns (nms_score, harris, blurred)."""
+    return detect_maps_levels_cuda([img], threshold, block_size,
+                                   k_harris)[0]
+
+
+def detect_maps_levels(levels, threshold: float, block_size: int = 7,
+                       k_harris: float = 0.04):
+    """[(B, H_l, W_l) float32] -> [(nms_score, harris, blurred)] per level:
+    one launch of the CUDA kernel for CUDA tensors, the plain version level
+    by level for CPU tensors."""
+    levels = list(levels)
+    if levels and all(img.device.type == "cpu" for img in levels):
+        return [detect_maps_plain(img, threshold, block_size, k_harris)
+                for img in levels]
+    if levels and all(img.is_cuda for img in levels):
+        return detect_maps_levels_cuda(levels, threshold, block_size,
+                                       k_harris)
+    raise ValueError("detect_maps_levels: unsupported devices "
+                     f"{sorted({str(img.device) for img in levels})}")
 
 
 def detect_maps(img: torch.Tensor, threshold: float, block_size: int = 7,
                 k_harris: float = 0.04):
     """(B, H, W) float32 -> (nms_score, harris, blurred): the CUDA kernel
     for a CUDA tensor, the plain version for a CPU tensor."""
-    if img.is_cuda:
-        return detect_maps_cuda(img, threshold, block_size, k_harris)
-    if img.device.type != "cpu":
-        raise ValueError(f"detect_maps: unsupported device {img.device}")
-    return detect_maps_plain(img, threshold, block_size, k_harris)
+    return detect_maps_levels([img], threshold, block_size, k_harris)[0]

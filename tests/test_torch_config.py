@@ -150,6 +150,10 @@ def test_cpu_wrappers_never_build(monkeypatch):
     img = torch.rand(1, 32, 40) * 255
     maps = cuda_detect.detect_maps(img, 20.0)
     assert all(m.shape == img.shape for m in maps)
+    small = torch.rand(1, 25, 31) * 255
+    levels = cuda_detect.detect_maps_levels([img, small], 20.0)
+    assert [tuple(m.shape for m in lv) for lv in levels] == \
+        [(img.shape,) * 3, (small.shape,) * 3]
     dog, score, gx, gy, gs = cuda_sift.sift_octave_maps(img[0], True)
     assert dog.shape == (5, 32, 40) and score.shape == (3, 32, 40)
     assert gx.shape == gy.shape == (4, 32, 40) and gs.shape == (32, 40)
@@ -172,6 +176,10 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         cuda_detect.detect_maps(meta, 20.0)
     with pytest.raises(ValueError):
+        cuda_detect.detect_maps_levels([meta, meta[:, :6]], 20.0)
+    with pytest.raises(ValueError):       # mixed devices
+        cuda_detect.detect_maps_levels([torch.zeros(1, 8, 8), meta], 20.0)
+    with pytest.raises(ValueError):
         cuda_sift.sift_octave_maps(meta[0], True)
     with pytest.raises(ValueError):
         cuda_warp.warp_batched(meta[..., None], torch.eye(3)[None], 1.0,
@@ -179,3 +187,16 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         cuda_slab_probe.slab_probe(torch.empty(3, 64, 512, device="meta"),
                                    16, False, 4)
+
+
+@pytest.mark.parametrize("n_levels", [0, 1, 9])
+def test_detect_levels_cuda_refuses_what_the_kernel_does_not_take(
+        n_levels):
+    """The multi-level launch takes 1 to 8 levels of CUDA tensors and
+    raises on anything else before it builds or launches."""
+    from imagestitch_tpu_torch.ops import cuda_detect
+    n0 = cuda_detect.launch_count
+    levels = [torch.zeros(1, 16, 16)] * n_levels
+    with pytest.raises(ValueError):
+        cuda_detect.detect_maps_levels_cuda(levels, 20.0)
+    assert cuda_detect.launch_count == n0

@@ -52,6 +52,64 @@ def test_detect_kernel_matches_plain(cuda, shape):
     assert float((k[2] - p[2]).abs().max()) <= 1e-3
 
 
+def _detect_images(image, batch):
+    """(batch, 97, 131) float32: seeded noise, a constant, or a
+    checkerboard of 4-pixel cells (FAST's arcs tie)."""
+    if image == "constant":
+        return np.full((batch, 97, 131), 77.0, np.float32)
+    if image == "checker":
+        yy, xx = np.indices((97, 131))
+        cells = ((yy // 4 + xx // 4) % 2 * 180.0 + 30.0).astype(np.float32)
+        return np.stack([cells + 5.0 * b for b in range(batch)])
+    rng = np.random.default_rng(batch)
+    return rng.uniform(0, 255, (batch, 97, 131)).astype(np.float32)
+
+
+@pytest.mark.parametrize("threshold", [0.0, 20.0])
+@pytest.mark.parametrize("block_size", [3, 5, 7])
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("image", ["noise", "constant", "checker"])
+def test_detect_levels_kernel_matches_plain(cuda, image, batch, block_size,
+                                            threshold):
+    """One launch for a 5-level 1.3 pyramid of a 97x131 image (its two
+    smallest levels are smaller than one tile): per level FAST/NMS equal,
+    Harris within 1e-4·max|Harris| and the blur within 1e-3 intensity."""
+    from imagestitch_tpu_torch.ops.pyramid import build_pyramid
+    img = torch.as_tensor(_detect_images(image, batch), device=cuda)
+    pyr = [lv.contiguous() for lv in build_pyramid(img, 5, 1.3)]
+    n0 = cuda_detect.launch_count
+    got = cuda_detect.detect_maps_levels(pyr, threshold, block_size)
+    assert cuda_detect.launch_count == n0 + 1
+    for lv, k in zip(pyr, got):
+        p = cuda_detect.detect_maps_plain(lv, threshold, block_size)
+        assert all(m.shape == lv.shape for m in k)
+        assert torch.equal(k[0], p[0])
+        assert float((k[1] - p[1]).abs().max()) <= \
+            1e-4 * float(p[1].abs().max())
+        assert float((k[2] - p[2]).abs().max()) <= 1e-3
+
+
+def test_detect_levels_wrapper_launches_only_the_kernel(cuda):
+    """A detect_maps_levels call over a 5-level pyramid runs exactly one
+    CUDA kernel, the detector maps, and no copy or fill."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from imagestitch_tpu_torch.ops.pyramid import build_pyramid
+    img = torch.as_tensor(_detect_images("noise", 1), device=cuda)
+    pyr = [lv.contiguous() for lv in build_pyramid(img, 5, 1.3)]
+    cuda_detect.detect_maps_levels(pyr, 20.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            cuda_detect.detect_maps_levels(pyr, 20.0)
+        torch.cuda.synchronize()
+    dev_events = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    assert len(dev_events) == 3, dev_events
+    assert all("detect_maps_kernel" in name for name in dev_events), \
+        dev_events
+
+
 @pytest.mark.parametrize("shape,first", [((96, 160), True),
                                          ((67, 121), False)],
                          ids=["first", "later"])
@@ -212,14 +270,15 @@ def test_slab_probe_kernel_matches_plain(cuda, h, tiled):
         assert torch.equal(k, p)
 
 
-@pytest.mark.parametrize("kind,launches", [("orb", (10, 0, 1)),
+@pytest.mark.parametrize("kind,launches", [("orb", (2, 0, 1)),
                                            ("sift", (0, 8, 1))])
 def test_stitch_pair_on_card_matches_cpu_and_counts_launches(cuda, kind,
                                                              launches):
     """A 192x256 rotation pair stitched on the card and on the CPU with
     the same RANSAC draws: equal counts, focal within 1e-3, pano within 1
     intensity on average. The card's ORB stitch launched the detector-maps
-    kernel 10 times (5 levels x 2 images) and the warp kernel once; its
+    kernel twice (once per image, for all 5 levels) and the warp kernel
+    once; its
     SIFT stitch called the octave-maps kernel 8 times (4 octaves x 2
     images) and the warp kernel once."""
     a, b, _, _ = synthetic_rotation_pair(192, 256)

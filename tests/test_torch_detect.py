@@ -88,6 +88,25 @@ def test_plain_detect_maps_batch_matches_single():
             assert torch.equal(m_b[b], m_s[0])
 
 
+@pytest.mark.parametrize("threshold", [0.0, 20.0])
+@pytest.mark.parametrize("block_size", [3, 5, 7])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_detect_maps_levels_cpu_matches_plain(batch, block_size, threshold):
+    """On CPU tensors the multi-level entry point is the plain version
+    level by level, bit for bit: a 5-level 1.3 pyramid of a 97x131 image
+    (its smallest levels are smaller than one kernel tile)."""
+    imgs = torch.stack([torch.as_tensor(_img((97, 131), 10 + b))
+                        for b in range(batch)])
+    pyr = [lv.contiguous() for lv in build_pyramid(imgs, 5, 1.3)]
+    got = cuda_detect.detect_maps_levels(pyr, threshold, block_size)
+    assert len(got) == len(pyr)
+    for lv, maps in zip(pyr, got):
+        want = cuda_detect.detect_maps_plain(lv, threshold, block_size)
+        for m_got, m_want in zip(maps, want):
+            assert m_got.shape == lv.shape
+            assert torch.equal(m_got, m_want)
+
+
 def test_plain_detect_maps_match_pallas_interior():
     """Against the TPU kernel itself (interpret mode) on the interior, as
     tests/test_orb.py holds it: its zero-padded halo differs at borders.
