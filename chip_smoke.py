@@ -35,8 +35,9 @@ result line is printed):
                 the four 1080p octave shapes (the first octave and three
                 later ones): the same nonzero score support, all five maps
                 within 1e-4; then one SIFT stitch's octave maps (8 calls,
-                92 CUDA kernels) through the wrapper, and the plain
-                version (the kernels alone: phase 12).
+                8 CUDA launches as the kernel library counts them) through
+                the wrapper, and the plain version (the kernel alone:
+                phase 12).
 6. dma_layouts — the slab-load probe kernel against its plain version on
                 the seeded 1080x1920x3 source, 468 steps, planar and tiled,
                 h = 16, 24, 32, 48: equal bit for bit (max error 0), also
@@ -59,15 +60,18 @@ result line is printed):
                 1080p pair with the plane warp (the configuration bench.py
                 times): h_valid, focal / offset / pano width, launch counts
                 (SIFT maps 8, warp 1, detector maps 0, slab probe 0 per
-                stitch), the median wall time of warm stitches.
+                stitch; K3's CUDA launches 8 per stitch), the median wall
+                time of warm stitches.
 11. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
                 of the 1080p SIFT plane stitch, and the device's busy share
                 of one stitch of each (torch.profiler, after the timing).
 12. kernel_times — K1's and K3's work for one stitch, the kernels alone from
                 torch.profiler kernel events (median of 20 rounds) with L2
                 flushed by a 256 MB write and warm; K1 also as ten
-                one-level launches. Last, since once the profiler has
-                traced the card, later launches cost the host more.
+                one-level launches; K3 also by kernel name and by octave,
+                and the CUDA kernels the trace shows per stitch (8). Last,
+                since once the profiler has traced the card, later
+                launches cost the host more.
 13. kernels   — one line {"kernels": [...]}: launches on each kernel's
                 path, error against the plain version, kernel / plain /
                 library ms and the least time the card could take
@@ -115,6 +119,10 @@ SIFT_OPS_EXTRA_PER_PX = (SIFT_S + 2) + 4 * (SIFT_S + 1) + SIFT_S * (52 + 2 + 18)
 # S+1 each and gS written once, float32
 SIFT_BYTES_PER_PX = 4 * (1 + (SIFT_S + 2) + SIFT_S + 2 * (SIFT_S + 1) + 1)
 N_TIMED = 20
+# the CUDA kernels of the SIFT octave maps (K3), by name, and how many one
+# SIFT stitch launches (one per call: 4 octaves x 2 images)
+K3_NAMES = ("sift_octave_kernel",)
+K3_CUDA_LAUNCHES_PER_STITCH = 8
 
 
 def emit(obj) -> None:
@@ -448,7 +456,8 @@ def _sift_octave_bases(gray, n_octaves: int = 4):
 def phase_sift_maps(state):
     import torch
     from imagestitch_tpu_torch.ops.cuda_sift import (
-        octave_blurs, sift_octave_maps_cuda, sift_octave_maps_plain)
+        cuda_launches, octave_blurs, sift_octave_maps_cuda,
+        sift_octave_maps_plain)
     from imagestitch_tpu_torch.ops.image import rgb_to_gray
     img1, img2, _, _ = state["rot"]
     ct = 0.04 * 255.0 / SIFT_S
@@ -480,6 +489,15 @@ def phase_sift_maps(state):
                 for b, f in calls]
 
     state["k3_call"] = stitch
+    n0 = cuda_launches()
+    stitch()
+    per_stitch = cuda_launches() - n0
+    check(per_stitch == K3_CUDA_LAUNCHES_PER_STITCH,
+          f"{per_stitch} CUDA launches for one stitch's octave maps")
+    # each octave's two calls (one per image) for the split by octave
+    state["k3_octaves"] = [
+        lambda o=o: [sift_octave_maps_cuda(b, f, SIFT_S, 1.6, ct)
+                     for b, f in calls[o::4]] for o in range(4)]
     wrapper = cuda_ms(stitch)
     plain = cuda_ms(lambda: [sift_octave_maps_plain(b, f, SIFT_S, 1.6, ct)
                              for b, f in calls], iters=3, warmup=1)
@@ -498,8 +516,11 @@ def phase_sift_maps(state):
         "replaces": "imagestitch_tpu/ops/pallas_sift.py:172",
         "max_abs_err": max(worst.values()), "plain_ms": plain,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "case": "kernels alone, L2 flushed", "wrapper_ms": wrapper}
+        "case": "kernel alone, L2 flushed", "wrapper_ms": wrapper,
+        "cuda_launches_per_stitch": per_stitch}
     emit({"phase": "sift_maps", "cases": cases, "support_equal": True,
+          "calls_per_stitch": len(calls),
+          "cuda_launches_per_stitch": per_stitch,
           "max_abs_err": worst, "wrapper_ms": wrapper, "plain_ms": plain,
           "bound_ms": b_ms,
           "octave_px_per_stitch": int(sum(b.numel() for b, _ in calls)),
@@ -751,19 +772,25 @@ def phase_sift_path(state):
     cyl, plane = _sift_configs()
     runs = [("rotation", img1, img2, cyl), ("translation", t1, t2, plane)]
 
+    from imagestitch_tpu_torch.ops.cuda_sift import cuda_launches
     _reset_counts()
+    n0 = cuda_launches()
     results = {name: stitch_pair(a, b, c) for name, a, b, c in runs}
     torch.cuda.synchronize()
     launches = _read_counts()
+    k3_cuda = cuda_launches() - n0
     want = {"detect_maps": 0, "sift_octave_maps": 8 * len(runs),
             "warp_batched": len(runs), "slab_probe": 0}
     check(launches == want, f"kernel launches {launches}, want {want}")
+    check(k3_cuda == K3_CUDA_LAUNCHES_PER_STITCH * len(runs),
+          f"{k3_cuda} K3 CUDA launches in {len(runs)} stitches")
     state["k3"]["launches"] = launches["sift_octave_maps"]
     state["k4"]["launches_stitching"] += launches["slab_probe"]
 
     summary = _check_pairs(results, f_true, shift)
     walls = _warm_walls(lambda: stitch_pair(t1, t2, plane))
-    emit({"phase": "sift_path", "launches": launches, "pairs": summary,
+    emit({"phase": "sift_path", "launches": launches,
+          "k3_cuda_launches": k3_cuda, "pairs": summary,
           "timed": "translation, plane warp",
           "wall_ms_median": walls[len(walls) // 2], "wall_ms": walls,
           "card": state["name"], "smi": state["smi"]})
@@ -773,30 +800,46 @@ def phase_kernel_times(state):
     """K1 and K3 alone for one stitch's work, from torch.profiler kernel
     events, median of 20 rounds: with L2 flushed by a 256 MB write before
     each round (ms) and without (warm_ms); K1 also as ten one-level
-    launches (one_level_ms, flushed). It runs after every timed stitch:
-    once the profiler has traced the card, later launches cost the host
-    more."""
+    launches (one_level_ms, flushed); K3 also split by kernel name
+    (ms_by_name) and by octave (octave_ms: each octave's two calls, one
+    per image), and the CUDA kernels one stitch's calls ran. It runs
+    after every timed stitch: once the profiler has traced the card,
+    later launches cost the host more."""
     import torch
-    from imagestitch_tpu_torch.utils.timing import FLUSH_BYTES, kernel_ms
+    from imagestitch_tpu_torch.utils.timing import (FLUSH_BYTES, kernel_ms,
+                                                    kernel_split_ms)
     stitch, one_level = state.pop("k1_calls")
     sift = state.pop("k3_call")
-    k3_names = ("blur_rows_kernel", "blur_cols_kernel", "octave_maps_kernel")
+    octaves = state.pop("k3_octaves")
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
     k1 = state["k1"]
     k1["ms"] = kernel_ms(stitch, N_TIMED, ("detect_maps",), flush)
     k1["one_level_ms"] = kernel_ms(one_level, N_TIMED, ("detect_maps",),
                                    flush)
     k3 = state["k3"]
-    k3["ms"] = kernel_ms(sift, N_TIMED, k3_names, flush)
+    cold = kernel_split_ms(sift, N_TIMED, K3_NAMES, flush)
+    k3["ms"] = cold["ms"]
+    k3["ms_by_name"] = cold["by_name"]
+    check(cold["kernels"] == K3_CUDA_LAUNCHES_PER_STITCH,
+          f"the trace shows {cold['kernels']} K3 kernels per stitch")
+    k3["cuda_kernels_traced"] = cold["kernels"]
+    k3["octave_ms"] = [kernel_ms(fn, N_TIMED, K3_NAMES, flush)
+                       for fn in octaves]
     del flush
     k1["warm_ms"] = kernel_ms(stitch, N_TIMED, ("detect_maps",))
-    k3["warm_ms"] = kernel_ms(sift, N_TIMED, k3_names)
+    warm = kernel_split_ms(sift, N_TIMED, K3_NAMES)
+    k3["warm_ms"] = warm["ms"]
+    k3["warm_ms_by_name"] = warm["by_name"]
+    k3["octave_warm_ms"] = [kernel_ms(fn, N_TIMED, K3_NAMES)
+                            for fn in octaves]
     emit({"phase": "kernel_times",
           "detect_maps": {k: k1[k] for k in ("ms", "warm_ms",
                                               "one_level_ms", "wrapper_ms",
                                               "bound_ms")},
-          "sift_octave_maps": {k: k3[k] for k in ("ms", "warm_ms",
-                                                   "wrapper_ms", "bound_ms")},
+          "sift_octave_maps": {k: k3[k] for k in (
+              "ms", "warm_ms", "ms_by_name", "warm_ms_by_name", "octave_ms",
+              "octave_warm_ms", "cuda_kernels_traced", "wrapper_ms",
+              "bound_ms")},
           "card": state["name"], "smi": state["smi"]})
 
 

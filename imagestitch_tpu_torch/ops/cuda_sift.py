@@ -15,7 +15,7 @@ kernel of `csrc/sift_octave.cu` (it replaces the TPU kernel
 `imagestitch_tpu/ops/pallas_sift.py:sift_octave_maps`) or raises; on a CPU
 tensor it runs `sift_octave_maps_plain`, the same function in plain
 tensor code. `launch_count` counts calls that launched the kernel (one
-per octave; each call runs several CUDA kernels).
+per octave; each call is one CUDA launch).
 """
 
 from __future__ import annotations
@@ -33,6 +33,12 @@ EDGE_RATIO = 10.0
 BORDER = 8
 MAX_TAPS = 15
 MAX_S = 6
+# the kernel's tile variants, (TW, TH, threads per block, HB: the largest
+# base halo its frame holds), indexed as imagestitch_sift_octave's
+# `variant` (csrc/sift_octave.cu): 64x64 tiles for octaves that fill the
+# card, 32x32 (two blocks an SM) for smaller ones, and a 60-px frame for
+# wider blurs
+TILES = ((64, 64, 512, 33), (32, 32, 256, 33), (32, 32, 256, 60))
 
 launch_count = 0
 
@@ -61,6 +67,24 @@ def octave_blurs(S: int, sigma0: float, first_octave: bool):
         k = max(3, int(2 * round(3 * dsig) + 1))
         chain.append((min(k, MAX_TAPS), dsig))
     return pre, tuple(chain)
+
+
+@functools.lru_cache(maxsize=None)
+def octave_halos(S: int, sigma0: float, first_octave: bool):
+    """(base halo, per-level halos): how far past an output tile each
+    level of one octave is needed, from the taps. The last level (S+2)
+    needs 1 px, for the 3x3 DoG neighbourhood and the central
+    differences; each blur adds its radius to the level before it, and
+    the first octave's pre-blur its own to the base. S = 3, sigma0 = 1.6:
+    levels 30, 26, 21, 15, 8, 1, the base 33 on the first octave and 30
+    on the others."""
+    pre, chain = octave_blurs(S, sigma0, first_octave)
+    halos = [1]
+    for k, _ in reversed(chain):
+        halos.append(halos[-1] + (k - 1) // 2)
+    levels = tuple(reversed(halos))
+    base = levels[0] + ((pre[0] - 1) // 2 if pre is not None else 0)
+    return base, levels
 
 
 def octave_levels(base: torch.Tensor, first_octave: bool, S: int,
@@ -146,38 +170,57 @@ def sift_octave_maps_plain(base: torch.Tensor, first_octave: bool,
     return dog, score[1:S + 1], gx, gy, levels[S]
 
 
+@functools.lru_cache(maxsize=None)
 def _fn():
     from imagestitch_tpu_torch.ops.cuda_build import load_library
     fn = load_library().imagestitch_sift_octave
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                   + [ctypes.POINTER(ctypes.c_float),
-                      ctypes.POINTER(ctypes.c_int)]
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.POINTER(ctypes.c_float)]
+                   + [ctypes.POINTER(ctypes.c_int)] * 2
+                   + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p])
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _taps(S: int, sigma0: float, first_octave: bool):
+def _plan(S: int, sigma0: float, first_octave: bool):
     """Every blur's float32 taps as the plain version computes them, as
-    ctypes arrays (flat taps, per-blur lengths), the pre-blur first
-    (length 0 when there is none)."""
+    ctypes arrays: the flat taps (the pre-blur first), each blur's length,
+    and the halo of each stage (the base, then each blur's output)."""
     pre, chain = octave_blurs(S, sigma0, first_octave)
     blurs = ([pre] if pre is not None else []) + list(chain)
     taps = [gaussian_kernel1d(k, s).numpy() for k, s in blurs]
-    lens = [0 if pre is None else len(taps[0])] + [
-        len(t) for t in taps[(pre is not None):]]
     flat = np.concatenate(taps).astype(np.float32)
+    lens = [len(t) for t in taps]
+    hb, levels = octave_halos(S, sigma0, first_octave)
+    halos = ((hb,) + levels) if first_octave else levels
     return ((ctypes.c_float * len(flat))(*flat.tolist()),
-            (ctypes.c_int * len(lens))(*lens))
+            (ctypes.c_int * len(lens))(*lens),
+            (ctypes.c_int * len(halos))(*halos))
 
 
-def sift_octave_maps_cuda(base: torch.Tensor, first_octave: bool,
-                          S: int = 3, sigma0: float = 1.6,
-                          contrast_thresh: float = 34.0,
-                          edge_ratio: float = EDGE_RATIO):
-    """Launch the CUDA kernels on an (H, W) float32 contiguous CUDA
-    tensor; returns (dog, score, gx, gy, gS)."""
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def tile_variant(H: int, W: int, hb: int, sms: int) -> int:
+    """The kernel's tile variant for an (H, W) octave with base halo hb on
+    a card of `sms` multiprocessors: 64x64 tiles where there are at least
+    as many as multiprocessors, else 32x32 (a lone wave of big tiles
+    leaves most of the card idle); the 60-px frame for halos past 33."""
+    if hb > TILES[0][3]:
+        if hb > TILES[2][3]:
+            raise ValueError(f"a base halo of {hb} px fits no tile variant")
+        return 2
+    tw, th = TILES[0][:2]
+    return 0 if -(-H // th) * -(-W // tw) >= sms else 1
+
+
+def _launch(base: torch.Tensor, first_octave: bool, S: int, sigma0: float,
+            contrast_thresh: float, edge_ratio: float, variant=None):
+    """One launch of the kernel; returns (dog, score, gx, gy, gS), views
+    into one allocation."""
     global launch_count
     if not base.is_cuda:
         raise ValueError("sift_octave_maps_cuda needs a CUDA tensor")
@@ -192,28 +235,45 @@ def sift_octave_maps_cuda(base: torch.Tensor, first_octave: bool,
     if not 1 <= S <= MAX_S:
         raise ValueError(f"the kernel takes 1..{MAX_S} scales per octave, "
                          f"not {S}")
-    dev = base.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    scratch = torch.empty((S + 4, H, W), **f32)     # levels + one pass
-    dog = torch.empty((S + 2, H, W), **f32)
-    score = torch.empty((S, H, W), **f32)
-    gx = torch.empty((S + 1, H, W), **f32)
-    gy = torch.empty((S + 1, H, W), **f32)
-    gs = torch.empty((H, W), **f32)
-    taps, lens = _taps(S, float(sigma0), bool(first_octave))
+    if base.numel() >= 2 ** 31:
+        raise ValueError(f"octave {H}x{W} has 2^31 pixels or more")
+    taps, lens, halos = _plan(S, float(sigma0), bool(first_octave))
+    if variant is None:
+        variant = tile_variant(H, W, halos[0], _sm_count(base.device))
+    # dog S+2, score S, gx S+1, gy S+1, gS 1
+    flat = torch.empty((4 * S + 5, H, W), dtype=torch.float32,
+                       device=base.device)
+    dog, score, gx, gy, gs = flat.split([S + 2, S, S + 1, S + 1, 1])
     ct_half = float(np.float32(0.5 * contrast_thresh))
     r1sq = float(np.float32((edge_ratio + 1.0) ** 2))
-    fn = _fn()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(base.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = fn(base.data_ptr(), scratch.data_ptr(), dog.data_ptr(),
-                    score.data_ptr(), gx.data_ptr(), gy.data_ptr(),
-                    gs.data_ptr(), H, W, S, int(first_octave), taps,
-                    lens, ct_half, float(edge_ratio), r1sq, stream)
+        status = _fn()(base.data_ptr(), dog.data_ptr(), score.data_ptr(),
+                       gx.data_ptr(), gy.data_ptr(), gs.data_ptr(), H, W,
+                       S, int(first_octave), taps, lens, halos, ct_half,
+                       float(edge_ratio), r1sq, variant, stream)
     from imagestitch_tpu_torch.ops.cuda_build import check
     check(status, "sift_octave kernel launch")
     launch_count += 1
-    return dog, score, gx, gy, gs
+    return dog, score, gx, gy, gs[0]
+
+
+def cuda_launches() -> int:
+    """The CUDA launches of the kernel since its library was loaded, as
+    the library counts them where it launches (one per call)."""
+    from imagestitch_tpu_torch.ops.cuda_build import load_library
+    return ctypes.c_longlong.in_dll(
+        load_library(), "imagestitch_sift_octave_launches").value
+
+
+def sift_octave_maps_cuda(base: torch.Tensor, first_octave: bool,
+                          S: int = 3, sigma0: float = 1.6,
+                          contrast_thresh: float = 34.0,
+                          edge_ratio: float = EDGE_RATIO):
+    """Launch the CUDA kernel once on an (H, W) float32 contiguous CUDA
+    tensor; returns (dog, score, gx, gy, gS)."""
+    return _launch(base, first_octave, S, sigma0, contrast_thresh,
+                   edge_ratio)
 
 
 def sift_octave_maps(base: torch.Tensor, first_octave: bool, S: int = 3,

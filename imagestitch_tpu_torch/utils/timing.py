@@ -51,13 +51,49 @@ def median_ms(fn, reps: int, device: torch.device,
 def kernel_ms(fn, rounds: int, names: tuple[str, ...],
               flush: torch.Tensor | None = None) -> float:
     """Median over `rounds` fn() calls of the summed device time of the
-    CUDA kernels each call runs whose names hold one of `names`, from
-    torch.profiler kernel events: the host's launch time and every other
-    kernel stay outside. With `flush`, the buffer is written before each
-    call; without, a short sleep kernel runs there instead. That kernel
-    marks where one call's kernels end: a call whose trace lost kernels,
-    or lost the mark before it (another kernel count than most calls
-    show), is left out, and the function raises if half or more are."""
+    CUDA kernels each call runs whose names hold one of `names`
+    (`kernel_split_ms`'s "ms")."""
+    return kernel_split_ms(fn, rounds, names, flush)["ms"]
+
+
+def kernel_split_ms(fn, rounds: int, names: tuple[str, ...],
+                    flush: torch.Tensor | None = None) -> dict:
+    """Device time of the CUDA kernels fn() runs whose names hold one of
+    `names`, from torch.profiler kernel events: the host's launch time
+    and every other kernel stay outside. Returns "ms", the median over
+    `rounds` calls of their summed time; "by_name", for each of `names`
+    the median over the calls of its kernels' summed time; "kernels",
+    the number of such kernels one call runs. With `flush`, the buffer
+    is written before each call; without, a short sleep kernel runs there
+    instead. That kernel marks where one call's kernels end: a call whose
+    trace lost kernels, or lost the mark before it (another kernel count
+    than most calls show), is left out. If half or more are, the rounds
+    are traced once more, and the function raises if that trace too
+    loses half of them."""
+    for _ in range(2):
+        calls = _traced_calls(fn, rounds, names, flush)
+        full = statistics.mode(len(c) for c in calls) if calls else 0
+        whole = [c for c in calls if len(c) == full]
+        if full and 2 * len(whole) > rounds:
+            break
+    else:
+        raise RuntimeError(f"{len(whole)} of {rounds} calls traced whole "
+                           f"({[len(c) for c in calls]} kernels matching "
+                           f"{names})")
+
+    def median(pick) -> float:
+        return float(statistics.median(
+            sum(us for name, us in c if pick(name)) for c in whole)) / 1e3
+
+    return {"ms": median(lambda name: True),
+            "by_name": {n: median(lambda name, n=n: n in name)
+                        for n in names},
+            "kernels": full}
+
+
+def _traced_calls(fn, rounds, names, flush):
+    """One torch.profiler trace of `rounds` fn() calls: per call, the
+    (name, us) of its kernels whose names hold one of `names`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -75,16 +111,10 @@ def kernel_ms(fn, rounds: int, names: tuple[str, ...],
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start):
         if any(n in e.name for n in names):
-            cur.append(e.time_range.elapsed_us())
+            cur.append((e.name, e.time_range.elapsed_us()))
         elif cur:
             calls.append(cur)
             cur = []
     if cur:
         calls.append(cur)
-    full = statistics.mode(len(c) for c in calls) if calls else 0
-    sums = [sum(c) for c in calls if len(c) == full]
-    if not full or 2 * len(sums) <= rounds:
-        raise RuntimeError(f"{len(sums)} of {rounds} calls traced whole "
-                           f"({[len(c) for c in calls]} kernels matching "
-                           f"{names})")
-    return float(statistics.median(sums)) / 1e3
+    return calls

@@ -131,6 +131,108 @@ def test_sift_octave_kernel_matches_plain(cuda, shape, first):
     assert int((p[1] > 0).sum()) > 0
 
 
+def _sift_image(image, shape):
+    """(H, W) float32: 8x8 cells of seeded intensity, seeded noise, a
+    constant, or a checkerboard of 4-pixel cells."""
+    rng = np.random.default_rng(sum(shape))
+    if image == "cells":
+        cells = rng.uniform(0, 255, (shape[0] // 8 + 1, shape[1] // 8 + 1))
+        img = np.kron(cells, np.ones((8, 8)))[:shape[0], :shape[1]]
+    elif image == "noise":
+        img = rng.uniform(0, 255, shape)
+    elif image == "constant":
+        img = np.full(shape, 77.0)
+    else:
+        yy, xx = np.indices(shape)
+        img = (yy // 4 + xx // 4) % 2 * 180.0 + 30.0
+    return np.ascontiguousarray(img, np.float32)
+
+
+def _hold_sift(k, p, S=3):
+    """All five maps within 1e-4 of the plain version, of its shapes, and
+    the same nonzero score support."""
+    assert len(k) == 5 and k[1].shape[0] == S
+    for a, b in zip(k, p):
+        assert a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-4
+    assert torch.equal(k[1] > 0, p[1] > 0)
+
+
+@pytest.mark.parametrize("shape", [(8, 9), (20, 33), (31, 65), (67, 121),
+                                   (96, 160), (135, 240)])
+@pytest.mark.parametrize("first", [True, False], ids=["first", "later"])
+@pytest.mark.parametrize("image", ["cells", "noise", "constant", "checker"])
+def test_sift_octave_kernel_cases_match_plain(cuda, shape, first, image):
+    """The octave-maps kernel at shapes smaller than one tile and no
+    multiples of it, and at the 1080p path's last octave (135x240), on
+    first and later octaves and four images: one launch, within 1e-4 in
+    all five maps, the same score support."""
+    base = torch.as_tensor(_sift_image(image, shape), device=cuda)
+    n0 = cuda_sift.launch_count
+    k = cuda_sift.sift_octave_maps_cuda(base, first, 3, 1.6, CONTRAST)
+    assert cuda_sift.launch_count == n0 + 1
+    p = cuda_sift.sift_octave_maps_plain(base, first, 3, 1.6, CONTRAST)
+    _hold_sift(k, p)
+    if image == "cells" and min(shape) > 2 * cuda_sift.BORDER + 8:
+        assert int((p[1] > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("variant", range(len(cuda_sift.TILES)))
+@pytest.mark.parametrize("first", [True, False], ids=["first", "later"])
+def test_sift_octave_kernel_tile_variants_match_plain(cuda, variant, first):
+    """Every tile variant of the kernel on a 135x240 octave and on one
+    smaller than its tile."""
+    for shape in [(135, 240), (45, 77)]:
+        base = torch.as_tensor(_sift_image("cells", shape), device=cuda)
+        k = cuda_sift._launch(base, first, 3, 1.6, CONTRAST,
+                              cuda_sift.EDGE_RATIO, variant)
+        p = cuda_sift.sift_octave_maps_plain(base, first, 3, 1.6, CONTRAST)
+        _hold_sift(k, p)
+
+
+@pytest.mark.parametrize("S,sigma0", [(1, 1.6), (2, 1.6), (4, 1.6),
+                                      (5, 1.6), (6, 1.6), (3, 3.2),
+                                      (6, 6.4)])
+@pytest.mark.parametrize("first", [True, False], ids=["first", "later"])
+def test_sift_octave_kernel_scales_match_plain(cuda, S, sigma0, first):
+    """Other scales per octave and wider blurs, up to the widest halos the
+    kernel takes (S = 6 at sigma0 = 6.4: 60 px on the first octave)."""
+    base = torch.as_tensor(_sift_image("cells", (90, 150)), device=cuda)
+    k = cuda_sift.sift_octave_maps_cuda(base, first, S, sigma0, CONTRAST)
+    p = cuda_sift.sift_octave_maps_plain(base, first, S, sigma0, CONTRAST)
+    _hold_sift(k, p, S)
+
+
+def test_sift_octave_kernel_raises_on_what_it_does_not_take(cuda):
+    """Seven scales, an octave of 7 rows, a strided view."""
+    base = torch.as_tensor(_sift_image("noise", (64, 64)), device=cuda)
+    with pytest.raises(ValueError):
+        cuda_sift.sift_octave_maps_cuda(base, True, 7)
+    with pytest.raises(ValueError):
+        cuda_sift.sift_octave_maps_cuda(base[:7].contiguous(), True)
+    with pytest.raises(ValueError):
+        cuda_sift.sift_octave_maps_cuda(base[:, ::2], True)
+
+
+def test_sift_octave_wrapper_launches_only_the_kernel(cuda):
+    """A sift_octave_maps_cuda call runs exactly one CUDA kernel, the
+    octave maps, and no copy or fill: the first octave and a later one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    base = torch.as_tensor(_sift_image("cells", (135, 240)), device=cuda)
+    cuda_sift.sift_octave_maps_cuda(base, True, 3, 1.6, CONTRAST)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for first in (True, False, True):
+            cuda_sift.sift_octave_maps_cuda(base, first, 3, 1.6, CONTRAST)
+        torch.cuda.synchronize()
+    dev_events = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    assert len(dev_events) == 3, dev_events
+    assert all("sift_octave_kernel" in name for name in dev_events), \
+        dev_events
+
+
 @pytest.mark.parametrize("kind", ["cylindrical", "spherical", "plane"])
 @pytest.mark.parametrize("mixed", [False, True], ids=["same", "mixed"])
 def test_warp_kernel_matches_plain(cuda, kind, mixed):
