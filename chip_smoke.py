@@ -44,8 +44,15 @@ result line is printed):
                 at every grid of 1-16 steps (16 more last steps). Then the
                 probe's entry point (tools.exp_dma_layouts.run) with the
                 launch counts: warm and cold ms, GB/s, the bound (the
-                source bytes the slabs cover, read once) and the slab
-                bytes over the memory rate (slab_hbm_ms).
+                source bytes the slabs cover, read once), the slab bytes
+                over the memory rate (slab_hbm_ms), and for each h the
+                card's L2 ceiling (tools.exp_dma_layouts.ceilings: one
+                block per SM copies the L2-resident source into shared
+                memory with bulk copies, as many bytes as the slabs, warm;
+                l2_ceiling_ms and _tbps) with the probe's slab rate as a
+                share of it (l2_share_warm, l2_share_cold), and beside it
+                the same bytes read with 16-byte loads (l2_loads_ms and
+                _tbps, not a ceiling: the probe outruns it at h = 16).
 7. reference  — a small pair (192x256) stitched on the card and on the CPU
                 (the plain versions) with the same RANSAC draws agree.
 8. sift_reference — the same with DetectorConfig(kind="sift").
@@ -85,7 +92,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 import traceback
@@ -138,14 +144,6 @@ def check(cond, msg):
         raise PhaseError(msg)
 
 
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
-
-
 def cuda_ms(fn, iters: int = N_TIMED, warmup: int = 3) -> float:
     """Mean device time of fn() in ms, by CUDA events around `iters`
     back-to-back calls after a warm-up."""
@@ -173,6 +171,7 @@ def phase_device(state):
     import torch
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
     import imagestitch_tpu_torch  # noqa: F401  (fails on a lone script)
+    from imagestitch_tpu_torch.utils.timing import smi_line
     state["name"] = torch.cuda.get_device_name(0)
     state["smi"] = smi_line()
     emit({"phase": "device", "name": state["name"], "smi": state["smi"],
@@ -551,7 +550,9 @@ def phase_dma_layouts(state):
     entry point with the launch counts reset before it and read after it.
     bound_ms is the source bytes the slabs cover over the memory rate (the
     function must read them once; every reread may come from L2), and
-    slab_hbm_ms the slab bytes over that rate."""
+    slab_hbm_ms the slab bytes over that rate. The L2 ceiling, timed warm
+    after the entry point, is what the probe is held to: its slabs all
+    come from L2."""
     import torch
     from imagestitch_tpu_torch.ops import cuda_slab_probe
     from imagestitch_tpu_torch.ops.slab_probe import (NCH, STEPS,
@@ -589,6 +590,9 @@ def phase_dma_layouts(state):
             "slab_probe": len(rows) * (3 + 2 * reps)}
     check(launches == want, f"kernel launches {launches}, want {want}")
 
+    ceiling = {h: tool.ceilings(planar, int(tool.slab_gb(h) * 1e9), reps)
+               for h in tool.HS}
+
     out = []
     for r in rows:
         c = cases[(r["h"], r["layout"])]
@@ -598,9 +602,16 @@ def phase_dma_layouts(state):
         uniq = _covered_bytes(r["h"], STEPS)
         # one float32 add per element of each slab's (8, 128) block
         b_ms, b_by = bound_ms(uniq, STEPS * NCH * 8 * 128)
-        out.append({**r, **c, "bound_ms": b_ms, "bound_by": b_by,
+        ceil = ceiling[r["h"]]
+        out.append({**r, **c, **ceil, "bound_ms": b_ms, "bound_by": b_by,
                     "unique_mb": uniq / 1e6,
-                    "slab_hbm_ms": slab / HBM_BYTES_PER_S * 1e3})
+                    "slab_hbm_ms": slab / HBM_BYTES_PER_S * 1e3,
+                    "blocks": cuda_slab_probe.probe_blocks(planar.device,
+                                                           STEPS),
+                    "l2_share_warm": slab / r["warm_ms"] / 1e9
+                    / ceil["l2_ceiling_tbps"],
+                    "l2_share_cold": slab / r["cold_ms"] / 1e9
+                    / ceil["l2_ceiling_tbps"]})
     # the kernels line: the warp's slab height (48) on its planar source,
     # with L2 flushed
     main = next(o for o in out if o["h"] == 48 and o["layout"] == "planar")
@@ -613,7 +624,8 @@ def phase_dma_layouts(state):
         "ms": main["cold_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None, "case": "h=48 planar, L2 flushed",
-        "warm_ms": main["warm_ms"], "slab_hbm_ms": main["slab_hbm_ms"]}
+        "warm_ms": main["warm_ms"], "slab_hbm_ms": main["slab_hbm_ms"],
+        "l2_ceiling_ms": main["l2_ceiling_ms"]}
     emit({"phase": "dma_layouts", "steps": STEPS, "launches": launches,
           "cases": out, "card": state["name"], "smi": state["smi"]})
 

@@ -4,17 +4,27 @@ The counterpart of the TPU tool `tools/exp_dma_layouts.py`.
 
 For h in (16, 24, 32, 48) and each layout, the probe kernel
 (`ops/cuda_slab_probe.py`, `csrc/slab_probe.cu`) copies 468 x 8 slabs of a
-seeded (3, 1080, 1920) float32 source into shared memory, one bulk copy
-per contiguous run. Each line gives the median time of one probe call:
+seeded (3, 1080, 1920) float32 source into shared memory, one tensor-map
+copy per slab, on one persistent block per multiprocessor. Each line
+gives the median time of one probe call:
 
 - warm: calls back to back, the 24.9 MB source resident in the 50 MB L2;
 - cold: before each call a write of a 256 MB buffer evicts L2,
 
 with the slab bytes moved and the rate (slab bytes / time). Times on the
 card are CUDA-event medians; with --device cpu the plain version runs and
-is timed on the host clock.
+is timed on the host clock. `--steps 468 396` times each grid in turn
+(396 steps are three full waves of one-step blocks, one block an SM, on
+132 SMs). `ceilings` times the card's L2 ceiling for the same bytes,
+which `chip_smoke.py`'s dma_layouts phase prints beside the probe.
 
     python3 -m imagestitch_tpu_torch.tools.exp_dma_layouts [--device cpu]
+        [--steps N ...]
+
+The script runs against whichever `imagestitch_tpu_torch` the import path
+finds first, so running this file by its path with another checkout's
+root first on PYTHONPATH times that checkout's kernel with the same
+harness.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import sys
 import numpy as np
 import torch
 
+from imagestitch_tpu_torch.ops import cuda_slab_probe
 from imagestitch_tpu_torch.ops.cuda_slab_probe import slab_probe
 from imagestitch_tpu_torch.ops.slab_probe import (NCH, SLAB_W, STEPS,
                                                   to_tiled)
@@ -77,24 +88,46 @@ def run(device=None, hs=HS, steps: int = STEPS, reps: int = 20,
     return rows
 
 
+def ceilings(src: torch.Tensor, nbytes: int, reps: int = 20) -> dict:
+    """The card's L2 readings for `nbytes` of slabs, warm, from the CUDA
+    source `src`: the ceiling the probe is held to (`l2_ceiling_*`, bulk
+    copies, `cuda_slab_probe.l2_ceiling_cuda`) and the 16-byte-load reading
+    (`l2_loads_*`, `l2_loads_cuda`), each in ms and TB/s of the bytes it
+    read. Raises if a reading's values are not finite."""
+    out = {}
+    for key, fn in (("l2_ceiling", cuda_slab_probe.l2_ceiling_cuda),
+                    ("l2_loads", cuda_slab_probe.l2_loads_cuda)):
+        vals, nb = fn(src, nbytes)
+        if not bool(torch.isfinite(vals).all()):
+            raise RuntimeError(f"{key}: values not finite")
+        ms = median_ms(lambda fn=fn: fn(src, nbytes), reps, src.device)
+        out[f"{key}_ms"], out[f"{key}_tbps"] = ms, nb / ms / 1e9
+    return out
+
+
 def print_rows(rows: list[dict]) -> None:
     for r in rows:
-        print(f"  h={r['h']:2d} {r['layout']:>6}: warm {r['warm_ms']:8.4f} "
-              f"ms ({r['warm_gbps']:7.1f} GB/s)  cold {r['cold_ms']:8.4f} "
-              f"ms ({r['cold_gbps']:7.1f} GB/s)  {r['gb']:.4f} GB "
-              f"[{r['device']}]")
+        print(f"  steps={r['steps']} h={r['h']:2d} {r['layout']:>6}: warm "
+              f"{r['warm_ms']:8.4f} ms ({r['warm_gbps']:7.1f} GB/s)  cold "
+              f"{r['cold_ms']:8.4f} ms ({r['cold_gbps']:7.1f} GB/s)  "
+              f"{r['gb']:.4f} GB [{r['device']}]")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu for the plain version")
+    ap.add_argument("--steps", type=int, nargs="+", default=[STEPS],
+                    help="grid sizes to time, in turn")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"device {name}, {STEPS} steps x {NCH} slabs of "
+    print(f"device {name}, {NCH} slabs a step of "
           f"{C}x{{h}}x{SLAB_W} float32", file=sys.stderr)
-    print_rows(run(dev))
+    rows = []
+    for steps in args.steps:
+        rows += run(dev, steps=steps)
+    print_rows(rows)
     return 0
 
 

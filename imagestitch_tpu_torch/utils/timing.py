@@ -3,11 +3,12 @@
 use to time a kernel alone. `median_ms` times a bare launch with CUDA
 events; `kernel_ms` reads the device time of the named kernels a call
 runs from `torch.profiler`, so it times a kernel alone through its public
-wrapper."""
+wrapper. `smi_line` names the card beside a time."""
 
 from __future__ import annotations
 
 import statistics
+import subprocess
 import time
 
 import torch
@@ -118,3 +119,12 @@ def _traced_calls(fn, rounds, names, flush):
     if cur:
         calls.append(cur)
     return calls
+
+
+def smi_line() -> str:
+    """`nvidia-smi`'s name and power limit of the first card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""

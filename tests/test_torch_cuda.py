@@ -355,21 +355,81 @@ def test_warp_wrapper_launches_only_the_kernel(cuda):
 @pytest.mark.parametrize("h", [16, 24, 32, 48])
 @pytest.mark.parametrize("tiled", [False, True], ids=["planar", "tiled"])
 def test_slab_probe_kernel_matches_plain(cuda, h, tiled):
-    """The slab-load probe's bulk-copy kernel equals its plain version bit
+    """The slab-load probe's tensor-map kernel equals its plain version bit
     for bit (the same float32 sums in chunk order) on a seeded 1080x1920x3
     source, one launch each. The output is the last step's sum, so every
     grid of 1-32 steps, and 100, 467 and the full 468, holds another step's
     eight origins against the plain version."""
-    rng = np.random.default_rng(0)
-    planar = torch.as_tensor(rng.random((3, 1080, 1920)).astype(
-        np.float32), device=cuda)
-    src = slab_probe.to_tiled(planar) if tiled else planar
+    src = _probe_source(cuda, tiled)
     for steps in (*range(1, 33), 100, 467, slab_probe.STEPS):
         n0 = cuda_slab_probe.launch_count
         k = cuda_slab_probe.slab_probe_cuda(src, h, tiled, steps)
         assert cuda_slab_probe.launch_count == n0 + 1
         p = slab_probe.slab_probe_plain(src, h, tiled, steps)
         assert torch.equal(k, p)
+
+
+def _probe_source(dev, tiled):
+    rng = np.random.default_rng(0)
+    planar = torch.as_tensor(rng.random((3, 1080, 1920)).astype(
+        np.float32), device=dev)
+    return slab_probe.to_tiled(planar) if tiled else planar
+
+
+@pytest.mark.parametrize("h", [16, 48])
+@pytest.mark.parametrize("tiled", [False, True], ids=["planar", "tiled"])
+def test_slab_probe_persistent_grid_around_the_sm_count(cuda, h, tiled):
+    """Grids of fewer steps than the card has multiprocessors (one block per
+    step) and of more (one block per multiprocessor, uneven ranges that
+    cross step boundaries): the kernel equals its plain version, one
+    launch each."""
+    src = _probe_source(cuda, tiled)
+    sms = cuda_slab_probe.sm_count(cuda)
+    for steps in (sms - 1, sms, sms + 1, 2 * sms + 3):
+        assert cuda_slab_probe.probe_blocks(cuda, steps) == min(sms, steps)
+        n0 = cuda_slab_probe.launch_count
+        k = cuda_slab_probe.slab_probe_cuda(src, h, tiled, steps)
+        assert cuda_slab_probe.launch_count == n0 + 1
+        assert torch.equal(k, slab_probe.slab_probe_plain(src, h, tiled,
+                                                          steps))
+
+
+def test_slab_probe_wrapper_launches_only_the_kernel(cuda):
+    """A slab_probe_cuda call runs exactly one CUDA kernel, the probe, and
+    no copy or fill: the tensor map is encoded on the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    src = _probe_source(cuda, False)
+    cuda_slab_probe.slab_probe_cuda(src, 48, False, 20)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            cuda_slab_probe.slab_probe_cuda(src, 48, False, 20)
+        torch.cuda.synchronize()
+    dev_events = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    assert len(dev_events) == 3, dev_events
+    assert all("slab_probe_kernel" in name for name in dev_events), \
+        dev_events
+
+
+def test_l2_ceiling_kernels_run(cuda):
+    """The L2 ceiling (bulk copies, whole 32 KB chunks) and the 16-byte-load
+    reading (whole rounds of one block per multiprocessor) read at least
+    the bytes asked for, less than one unit more, return finite block
+    values, and raise on a source that is not on the card."""
+    src = _probe_source(cuda, False)
+    want = (64 << 20) + 4096
+    sms = cuda_slab_probe.sm_count(cuda)
+    for fn, unit in ((cuda_slab_probe.l2_ceiling_cuda, 32 << 10),
+                     (cuda_slab_probe.l2_loads_cuda, sms * 1024 * 4 * 16)):
+        vals, nbytes = fn(src, want)
+        torch.cuda.synchronize()
+        assert vals.shape == (sms,)
+        assert bool(torch.isfinite(vals).all()) and float(vals.sum()) > 0
+        assert want <= nbytes < want + unit and nbytes % unit == 0
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(src.cpu(), want)
 
 
 @pytest.mark.parametrize("kind,launches", [("orb", (2, 0, 1)),

@@ -136,6 +136,80 @@ def test_plain_is_last_step_sum_in_chunk_order(sources):
         np.testing.assert_array_equal(b.numpy(), ref)
 
 
+@pytest.mark.parametrize("h", [16, 24, 32, 48])
+@pytest.mark.parametrize("tiled", [False, True], ids=["planar", "tiled"])
+def test_tensor_map_views_match_plain_slabs(sources, h, tiled):
+    """The 4-D tensor map the card's kernel copies each slab with, read on
+    the CPU: a strided view of the source with the map's dims, byte
+    strides and box, at the coordinates of every chunk of steps 0-31 and
+    467, equals the slab the plain version gathers, exactly. Planar slabs
+    land as (C, h, 3, 128), the memory order of (C, h, 384)."""
+    src = torch.as_tensor(sources[1] if tiled else sources[0])
+    spec = sp.tensor_map_spec(tuple(src.shape), tiled, h)
+    assert spec.dims[::-1] == ((3, 15, 1080, 128) if tiled
+                               else (3, 1080, 15, 128))
+    el = (1, *(st // 4 for st in spec.strides))
+    steps = torch.tensor([*range(32), 467])
+    want = sp.gather_slabs(src, h, tiled, steps)
+    pad_h, pad_w = sp.source_hw(src, tiled)
+    for i, step in enumerate(steps.tolist()):
+        for ch in range(sp.NCH):
+            sy, sx = sp.origins(step, ch, pad_h, pad_w, h)
+            coords = sp.tensor_map_coords(sy, sx, tiled)
+            view = torch.as_strided(
+                src, spec.box[::-1], el[::-1],
+                sum(c * e for c, e in zip(coords, el)))
+            slab = want[:, i, ch]
+            assert torch.equal(view.reshape(slab.shape), slab)
+
+
+@pytest.mark.parametrize("h", [16, 24, 32, 48])
+@pytest.mark.parametrize("tiled", [False, True], ids=["planar", "tiled"])
+def test_tensor_map_spec_is_one_box_per_slab(h, tiled):
+    """What a TMA map allows and the kernel assumes: box sides of at most
+    256 elements, an inner box of 512 bytes, byte strides that are
+    multiples of 16 and dense, and one box holding the whole (C, h, 384)
+    slab, its row origin and tile in dims 1 and 2."""
+    shape = (3, 15, 1080, 128) if tiled else (3, 1080, 1920)
+    spec = sp.tensor_map_spec(shape, tiled, h)
+    assert all(1 <= b <= 256 for b in spec.box)
+    assert spec.box[0] * 4 == 512
+    assert all(st % 16 == 0 for st in spec.strides)
+    assert spec.strides[0] == 4 * spec.dims[0]
+    assert all(spec.strides[i + 1] == spec.strides[i] * spec.dims[i + 1]
+               for i in range(2))
+    assert np.prod(spec.box) == 3 * h * sp.SLAB_W
+    assert spec.box[3] == spec.dims[3] == 3
+    ydim, xdim = sp.coord_dims(tiled)
+    assert {ydim, xdim} == {1, 2}
+    assert (spec.box[ydim], spec.box[xdim]) == (h, sp.TILES)
+    assert sp.tensor_map_coords(40, 640, tiled)[ydim] == 40
+    assert sp.tensor_map_coords(40, 640, tiled)[xdim] == 5
+
+
+@pytest.mark.parametrize("steps", [*range(1, 33), 100, 396, 467, 468])
+def test_block_ranges_cover_every_slab_once(steps):
+    """The persistent grid's schedule at min(132, steps) blocks: the ranges
+    cover the NCH x steps slabs once, in order, sizes differing by at most
+    one, and the last range ends with the last step's NCH slabs whole."""
+    units = sp.NCH * steps
+    blocks = min(132, steps)
+    ranges = sp.block_ranges(units, blocks)
+    assert len(ranges) == blocks
+    assert [u for r in ranges for u in r] == list(range(units))
+    sizes = {len(r) for r in ranges}
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= sp.NCH
+    assert ranges[-1][-sp.NCH:] == range(units - sp.NCH, units)
+
+
+def test_l2_ceilings_need_a_card_source(sources):
+    src = torch.as_tensor(sources[0])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_slab_probe.l2_ceiling_cuda(src, 1 << 20)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_slab_probe.l2_loads_cuda(src, 1 << 20)
+
+
 def test_wrapper_on_cpu_runs_plain_and_checks_args(sources):
     n0 = cuda_slab_probe.launch_count
     src = torch.as_tensor(sources[0])
