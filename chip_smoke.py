@@ -69,20 +69,44 @@ result line is printed):
                 (SIFT maps 8, warp 1, detector maps 0, slab probe 0 per
                 stitch; K3's CUDA launches 8 per stitch), the median wall
                 time of warm stitches.
-11. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
+11. chain_reference — a 4-view 160x224 synthetic_sequence chain
+                (stitch_chain_impl, no bundle adjustment) on the card and
+                on the CPU with the same RANSAC draws per pair: equal
+                counts, h_valid, reachable and corner, focal within 1e-3,
+                valid-mask IoU >= 0.999.
+12. chain_path — stitch_chain with the default PipelineConfig on bench.py's
+                chain8_1080p (8 views of 1080x1920) and chain4_cyl (4 of
+                480x640) sequences, 50% overlap: every h_valid and
+                reachable true, the pano's width within 10% of
+                W + (N-1)·shift, launches per stitch (detector maps 1, warp
+                1, SIFT 0, slab probe 0), the median wall ms of 3 warm
+                stitches. Then K1 at B = 8 on the 8 views' five 1080p
+                levels and K2 into the 8-view canvas (1458x16704), each
+                against its plain version to the tolerances of phases
+                detect and warp, with their times (K2's kernel alone, L2
+                flushed and warm).
+13. stitcher_path — stitch() on a 4-view 1080x1920 sequence, and Stitcher on
+                a 3-view 480x640 sequence whose middle view is cropped to
+                432x600 and on a 2x2 480x640 synthetic_grid: every view
+                reachable, the pano extending as the JAX package's tests
+                ask, launches per stitch (detector maps 1, warp 1), the
+                median wall ms of 3 warm 1080p stitches and their
+                StageTimer stages.
+14. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
                 of the 1080p SIFT plane stitch, and the device's busy share
                 of one stitch of each (torch.profiler, after the timing).
-12. kernel_times — K1's and K3's work for one stitch, the kernels alone from
+15. kernel_times — K1's and K3's work for one stitch, the kernels alone from
                 torch.profiler kernel events (median of 20 rounds) with L2
                 flushed by a 256 MB write and warm; K1 also as ten
-                one-level launches; K3 also by kernel name and by octave,
-                and the CUDA kernels the trace shows per stitch (8). Last,
-                since once the profiler has traced the card, later
-                launches cost the host more.
-13. kernels   — one line {"kernels": [...]}: launches on each kernel's
-                path, error against the plain version, kernel / plain /
-                library ms and the least time the card could take
-                (bound_ms).
+                one-level launches and as the chain's one launch for 8
+                views; K3 also by kernel name and by octave, and the CUDA
+                kernels the trace shows per stitch (8). Last, since once
+                the profiler has traced the card, later launches cost the
+                host more.
+16. kernels   — one line {"kernels": [...]}: launches on the main path
+                (`launches`) and on each path (`launches_by_path`), error
+                against the plain version, kernel / plain / library ms and
+                the least time the card could take (bound_ms).
 
 Then the card's name and power limit, and the last line
 {"ok": true, "device": {...}}. Needs one card; builds everything it runs.
@@ -691,6 +715,17 @@ def _read_counts():
             "slab_probe": cuda_slab_probe.launch_count}
 
 
+KERNEL_KEYS = {"k1": "detect_maps", "k2": "warp_batched",
+               "k3": "sift_octave_maps", "k4": "slab_probe"}
+
+
+def _record_path(state, path, launches):
+    """Each kernel's launches on one path, counted from 0 before the path
+    was driven and read right after."""
+    for key, name in KERNEL_KEYS.items():
+        state[key].setdefault("launches_by_path", {})[path] = launches[name]
+
+
 def _warm_walls(fn, n: int = 5):
     import torch
     walls = []
@@ -723,6 +758,7 @@ def phase_main_path(state):
     state["k1"]["launches"] = launches["detect_maps"]
     state["k2"]["launches"] = launches["warp_batched"]
     state["k4"]["launches_stitching"] = launches["slab_probe"]
+    _record_path(state, "main_path", launches)
 
     summary = _check_pairs(results, f_true, shift)
     walls = _warm_walls(lambda: stitch_pair(img1, img2))
@@ -798,6 +834,7 @@ def phase_sift_path(state):
           f"{k3_cuda} K3 CUDA launches in {len(runs)} stitches")
     state["k3"]["launches"] = launches["sift_octave_maps"]
     state["k4"]["launches_stitching"] += launches["slab_probe"]
+    _record_path(state, "sift_path", launches)
 
     summary = _check_pairs(results, f_true, shift)
     walls = _warm_walls(lambda: stitch_pair(t1, t2, plane))
@@ -806,6 +843,300 @@ def phase_sift_path(state):
           "timed": "translation, plane warp",
           "wall_ms_median": walls[len(walls) // 2], "wall_ms": walls,
           "card": state["name"], "smi": state["smi"]})
+
+
+# bench.py's chain configurations: (name, views, height, width)
+CHAIN_CASES = (("chain8_1080p", 8, 1080, 1920), ("chain4_cyl", 4, 480, 640))
+
+
+def phase_chain_reference(state):
+    """A 4-view 160x224 chain on the card and on the CPU with the same
+    RANSAC draws per pair, without bundle adjustment: on a near-pure
+    translation the adjuster walks a flat valley where float32 rounding
+    moves its stop by percents (ROADMAP Queue C), so both sides hold the
+    chained cameras."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import CameraConfig, PipelineConfig
+    from imagestitch_tpu_torch.pipeline import (set_full_precision,
+                                                stitch_chain_impl)
+    from imagestitch_tpu_torch.utils.io import synthetic_sequence
+    views, _ = synthetic_sequence(4, 160, 224, overlap=0.5, seed=9)
+    g = torch.Generator().manual_seed(2)
+    draws = {(i, i + 1): (torch.rand((2048, 4), generator=g),
+                          torch.rand((256, 4), generator=g))
+             for i in range(3)}
+    cfg = PipelineConfig(camera=CameraConfig(ba_refine=False))
+    set_full_precision()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        imgs = torch.as_tensor(np.stack(views), device=dev)
+        p, v, c, m = stitch_chain_impl(imgs, cfg, draws)
+        out[dev] = (p.cpu().numpy(), v.cpu().numpy(), c.cpu().numpy(),
+                    {k: x.cpu().numpy() for k, x in m.items()})
+    (pc, vc, cc, mc), (pp, vp, cp, mp) = out["cuda"], out["cpu"]
+    for k in ("num_inliers", "h_valid", "reachable"):
+        check(np.array_equal(mc[k], mp[k]), f"chain {k}: card {mc[k]} vs "
+              f"CPU {mp[k]}")
+    check(bool(mc["h_valid"].all() and mc["reachable"].all()),
+          f"chain h_valid {mc['h_valid']}, reachable {mc['reachable']}")
+    check(np.array_equal(cc, cp), f"chain corner card {cc} vs CPU {cp}")
+    rel = abs(float(mc["focal"]) - float(mp["focal"])) / float(mp["focal"])
+    check(rel < 1e-3, f"chain focal card {mc['focal']} vs CPU {mp['focal']}")
+    iou = float((vc & vp).sum() / max((vc | vp).sum(), 1))
+    check(iou >= 0.999, f"chain valid-mask IoU {iou}")
+    both = vc & vp
+    emit({"phase": "chain_reference", "canvas": list(vc.shape),
+          "focal_card": float(mc["focal"]), "focal_cpu": float(mp["focal"]),
+          "inliers": [mc["num_inliers"].tolist(), mp["num_inliers"].tolist()],
+          "corner": cc.tolist(), "iou": iou,
+          "canvas_mean_abs_diff": float(np.abs(pc[both] - pp[both]).mean())})
+
+
+def phase_chain_path(state):
+    """stitch_chain on chain8_1080p and chain4_cyl with the launch counts
+    reset before and read after; then K1 at B = 8 and K2 into the 8-view
+    canvas against their plain versions at those shapes."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import stitch_chain
+    from imagestitch_tpu_torch.utils.io import synthetic_sequence
+    seqs = {name: synthetic_sequence(n, h, w, overlap=0.5, seed=7)
+            for name, n, h, w in CHAIN_CASES}
+    _reset_counts()
+    results = {name: stitch_chain(views) for name, (views, _) in seqs.items()}
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    want = {"detect_maps": len(seqs), "sift_octave_maps": 0,
+            "warp_batched": len(seqs), "slab_probe": 0}
+    check(launches == want, f"kernel launches {launches}, want {want}")
+    _record_path(state, "chain_path", launches)
+
+    summary = {}
+    for name, n, h, w in CHAIN_CASES:
+        views, shift = seqs[name]
+        pano, m = results[name]
+        check(all(m["h_valid"]), f"{name}: h_valid {m['h_valid']}")
+        check(all(m["reachable"]), f"{name}: reachable {m['reachable']}")
+        check(pano.dtype == np.uint8 and pano.std() > 20, f"{name}: pano")
+        want_w = w + (n - 1) * shift
+        check(abs(pano.shape[1] - want_w) < 0.1 * want_w,
+              f"{name}: pano width {pano.shape[1]} vs {want_w}")
+        walls = _warm_walls(lambda v=views: stitch_chain(v), 3)
+        summary[name] = {"pano": list(pano.shape), "want_width": want_w,
+                         "focal": m["focal"], "inliers": m["num_inliers"],
+                         "canvas_overflow": m["canvas_overflow"],
+                         "wall_ms_median": walls[1], "wall_ms": walls,
+                         "first_ms": m["stitch_chain_total"]}
+    stages = _chain_stages(seqs["chain8_1080p"][0], 3)
+    k1 = _hold_k1_batch(state, seqs["chain8_1080p"][0])
+    k2 = _hold_k2_chain(state, seqs["chain8_1080p"][0])
+    emit({"phase": "chain_path", "launches": launches, "chains": summary,
+          "chain8_stages_ms": stages, "k1_b8": k1, "k2_chain8": k2,
+          "card": state["name"], "smi": state["smi"]})
+
+
+def _chain_stages(views, n_warm: int):
+    """Wall ms of each stage of one default-config stitch_chain
+    (synchronized between stages, median of `n_warm` runs after a first
+    one): the steps of pipeline.register_chain and stitch_chain_impl."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import pipeline as P
+    from imagestitch_tpu_torch.config import PipelineConfig
+    from imagestitch_tpu_torch.features import detect_batched
+    from imagestitch_tpu_torch.matching.matcher import match_pairs
+    from imagestitch_tpu_torch.ops.image import rgb_to_gray
+    from imagestitch_tpu_torch.types import stack
+    cfg = PipelineConfig()
+    n = len(views)
+    h, w = views[0].shape[:2]
+    pairs = [(i, i + 1) for i in range(n - 1)]
+
+    def one(marks):
+        def mark(name):
+            torch.cuda.synchronize()
+            marks.append((name, time.perf_counter()))
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        mark("start")
+        imgs = torch.as_tensor(np.stack(views), device="cuda").float()
+        mark("upload")
+        feats = detect_batched(rgb_to_gray(imgs), cfg.detector)
+        mark("detect")
+        mis = stack(match_pairs(feats, pairs, cfg.matcher, cfg.ransac,
+                                generator=gen))
+        mark("match_ransac")
+        sizes = torch.tensor([[h, w]] * n, dtype=torch.int32, device="cuda")
+        cams = P.estimate_cameras(mis.H, mis.h_valid, sizes)
+        cams = P._adjust(cams, feats, mis, pairs,
+                         (mis.confidence > 1.0) & mis.h_valid, cfg)
+        mark("cameras_ba")
+        scale = P.warp_scale(cams)
+        canvas = P._pano_canvas_shape((h, w), n, cfg)
+        warped, masks, _, _, _ = P._warp_all_shared(imgs, cams, scale,
+                                                    canvas, cfg)
+        mark("warp")
+        warped = P._apply_exposure(warped, masks, cfg)
+        mark("exposure")
+        pano, valid = P._seam_and_blend(warped, masks, cfg, w, h)
+        mark("seam_blend")
+        P._crop_valid(pano.cpu().numpy(), valid.cpu().numpy())
+        mark("readback_crop")
+
+    runs = []
+    for _ in range(n_warm + 1):
+        marks = []
+        one(marks)
+        runs.append({marks[i][0]: (marks[i][1] - marks[i - 1][1]) * 1e3
+                     for i in range(1, len(marks))})
+    runs = runs[1:]
+    stages = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+    return {"ms": stages, "total_ms": sum(stages.values())}
+
+
+def _hold_k1_batch(state, views):
+    """K1 in one launch for 8 views' five 1080p levels against the plain
+    version (phase detect's tolerances); the wrapper and plain ms, and the
+    call for phase kernel_times."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch.ops.cuda_detect import (detect_maps_levels,
+                                                       detect_maps_plain)
+    from imagestitch_tpu_torch.ops.image import rgb_to_gray
+    from imagestitch_tpu_torch.ops.pyramid import build_pyramid
+    gray = rgb_to_gray(torch.as_tensor(np.stack(views)).cuda().float())
+    levels = [lv.contiguous() for lv in build_pyramid(gray, 5, 1.3)]
+    worst = {"nms": 0.0, "harris": 0.0, "harris_rel": 0.0, "blur": 0.0}
+    for lv, k in zip(levels, detect_maps_levels(levels, 20.0)):
+        _hold_detect(k, detect_maps_plain(lv, 20.0), tuple(lv.shape), worst)
+
+    def call():
+        return detect_maps_levels(levels, 20.0)
+
+    state["k1_chain_call"] = call
+    px = sum(lv.numel() for lv in levels)
+    b_ms, b_by = bound_ms(16.0 * px, DETECT_OPS_PER_PX * px)
+    out = {"shapes": [list(lv.shape) for lv in levels], "max_abs_err": worst,
+           "wrapper_ms": cuda_ms(call),
+           "plain_ms": cuda_ms(lambda: [detect_maps_plain(lv, 20.0)
+                                        for lv in levels], iters=3, warmup=1),
+           "bound_ms": b_ms, "bound_by": b_by}
+    state["k1"]["chain8"] = out
+    return out
+
+
+def _hold_k2_chain(state, views):
+    """K2 into the 8-view chain canvas, cameras from registering the chain
+    on the card, against the plain version (phase warp's tolerances); the
+    kernel alone with L2 flushed and warm, and the plain version."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch.config import PipelineConfig
+    from imagestitch_tpu_torch.ops.cuda_warp import warp_launcher
+    from imagestitch_tpu_torch.pipeline import (
+        _pano_canvas_shape, register_chain, set_full_precision, warp_inputs,
+        warp_scale)
+    from imagestitch_tpu_torch.utils.timing import FLUSH_BYTES, median_ms
+    from imagestitch_tpu_torch.warp.warper import warp_batched_plain
+    set_full_precision()
+    dev = torch.device("cuda")
+    cfg = PipelineConfig()
+    n = len(views)
+    h, w = views[0].shape[:2]
+    imgs = torch.as_tensor(np.stack(views), device=dev).float().contiguous()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    _, _, cams, _ = register_chain(imgs, cfg, generator=gen)
+    scale = warp_scale(cams)
+    canvas = _pano_canvas_shape((h, w), n, cfg)
+    k_rinvs, corner, roi_uvs, overflow = warp_inputs(cams, scale, (h, w), n,
+                                                     canvas, cfg)
+    res = _compare_warp("chain8_1080p", imgs, k_rinvs, scale, corner,
+                        roi_uvs, canvas, "cylindrical")
+    corners = corner.expand(n, 2)
+    launch, _, _ = warp_launcher(imgs, k_rinvs, scale, corners, roi_uvs,
+                                 canvas, "cylindrical")
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    cold = median_ms(launch, N_TIMED, dev, flush)
+    del flush
+    warm = cuda_ms(launch)
+    plain = cuda_ms(lambda: warp_batched_plain(
+        imgs, k_rinvs, scale, corners, roi_uvs, canvas, "cylindrical"),
+        iters=2, warmup=1)
+    Hc, Wc = canvas
+    nbytes = imgs.numel() * 4 + n * Hc * Wc * (3 * 4 + 1)
+    b_ms, b_by = bound_ms(nbytes, n * (WARP_OPS_PER_PX * Hc * Wc
+                                       + WARP_OPS_PER_LINE * (Hc + Wc)))
+    out = {**res, "canvas_overflow": bool(overflow), "ms": cold,
+           "warm_ms": warm, "plain_ms": plain, "bound_ms": b_ms,
+           "bound_by": b_by, "output_gb": n * Hc * Wc * 13 / 1e9}
+    state["k2"]["chain8"] = {k: out[k] for k in (
+        "canvas", "max_abs_err", "ms", "warm_ms", "plain_ms", "bound_ms",
+        "bound_by")}
+    return out
+
+
+def phase_stitcher_path(state):
+    """stitch() on a 4-view 1080p sequence; Stitcher on a mixed-size 3-view
+    480x640 sequence and on a 2x2 480x640 grid (canvas height 1.8x: the
+    grid's pano is 1.5x a view's height), launch counts reset before and
+    read after; then 3 warm 1080p stitches with their stage times."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import (PipelineConfig, Stitcher, WarpConfig,
+                                       stitch)
+    from imagestitch_tpu_torch.utils.io import (synthetic_grid,
+                                                synthetic_sequence)
+    seq4, shift4 = synthetic_sequence(4, 1080, 1920, overlap=0.5, seed=7)
+    seq3, shift3 = synthetic_sequence(3, 480, 640, overlap=0.7, seed=11)
+    seq3[1] = np.ascontiguousarray(seq3[1][:432, :600])
+    grid, sx, sy = synthetic_grid(2, 2, 480, 640)
+    grid_cfg = PipelineConfig(warp=WarpConfig(canvas_scale_h=1.8))
+    runs = {"seq4_1080p": lambda: stitch(seq4),
+            "mixed3_480p": lambda: Stitcher().stitch(seq3),
+            "grid2x2_480p": lambda: Stitcher(grid_cfg).stitch(grid)}
+    _reset_counts()
+    results = {name: fn() for name, fn in runs.items()}
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    want = {"detect_maps": len(runs), "sift_octave_maps": 0,
+            "warp_batched": len(runs), "slab_probe": 0}
+    check(launches == want, f"kernel launches {launches}, want {want}")
+    _record_path(state, "stitcher_path", launches)
+
+    extents = {"seq4_1080p": (1920 + 2 * shift4, 0),
+               "mixed3_480p": (640 + shift3, 0),
+               "grid2x2_480p": (640 + 0.6 * sx, 480 + 0.6 * sy)}
+    summary = {}
+    for name, (pano, m) in results.items():
+        check(all(m["reachable"]), f"{name}: reachable {m['reachable']}")
+        check(pano.dtype == np.uint8 and pano.std() > 20, f"{name}: pano")
+        min_w, min_h = extents[name]
+        check(pano.shape[1] > min_w and pano.shape[0] > min_h,
+              f"{name}: pano {pano.shape[:2]}, want more than "
+              f"{min_h} x {min_w}")
+        summary[name] = {"pano": list(pano.shape), "focal": m["focal"],
+                         "pair_confidences": m["pair_confidences"],
+                         "canvas_overflow": m["canvas_overflow"]}
+    walls, stages = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = stitch(seq4)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        stages.append({k: v for k, v in m.items() if k in STAGES})
+    order = sorted(range(3), key=walls.__getitem__)
+    emit({"phase": "stitcher_path", "launches": launches, "runs": summary,
+          "timed": "seq4_1080p", "wall_ms_median": walls[order[1]],
+          "wall_ms": sorted(walls),
+          "stages_ms": {k: float(np.median([st[k] for st in stages]))
+                        for k in STAGES},
+          "card": state["name"], "smi": state["smi"]})
+
+
+STAGES = ("detect", "match", "cameras", "bundle_adjust", "warp", "exposure",
+          "seam_blend")
 
 
 def phase_kernel_times(state):
@@ -821,6 +1152,7 @@ def phase_kernel_times(state):
     from imagestitch_tpu_torch.utils.timing import (FLUSH_BYTES, kernel_ms,
                                                     kernel_split_ms)
     stitch, one_level = state.pop("k1_calls")
+    chain8 = state.pop("k1_chain_call")
     sift = state.pop("k3_call")
     octaves = state.pop("k3_octaves")
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
@@ -828,6 +1160,7 @@ def phase_kernel_times(state):
     k1["ms"] = kernel_ms(stitch, N_TIMED, ("detect_maps",), flush)
     k1["one_level_ms"] = kernel_ms(one_level, N_TIMED, ("detect_maps",),
                                    flush)
+    k1["chain8"]["ms"] = kernel_ms(chain8, N_TIMED, ("detect_maps",), flush)
     k3 = state["k3"]
     cold = kernel_split_ms(sift, N_TIMED, K3_NAMES, flush)
     k3["ms"] = cold["ms"]
@@ -839,6 +1172,7 @@ def phase_kernel_times(state):
                        for fn in octaves]
     del flush
     k1["warm_ms"] = kernel_ms(stitch, N_TIMED, ("detect_maps",))
+    k1["chain8"]["warm_ms"] = kernel_ms(chain8, N_TIMED, ("detect_maps",))
     warm = kernel_split_ms(sift, N_TIMED, K3_NAMES)
     k3["warm_ms"] = warm["ms"]
     k3["warm_ms_by_name"] = warm["by_name"]
@@ -847,7 +1181,7 @@ def phase_kernel_times(state):
     emit({"phase": "kernel_times",
           "detect_maps": {k: k1[k] for k in ("ms", "warm_ms",
                                               "one_level_ms", "wrapper_ms",
-                                              "bound_ms")},
+                                              "bound_ms", "chain8")},
           "sift_octave_maps": {k: k3[k] for k in (
               "ms", "warm_ms", "ms_by_name", "warm_ms_by_name", "octave_ms",
               "octave_warm_ms", "cuda_kernels_traced", "wrapper_ms",
@@ -957,6 +1291,9 @@ def main() -> int:
               ("reference", phase_reference),
               ("sift_reference", phase_sift_reference),
               ("main_path", phase_main_path), ("sift_path", phase_sift_path),
+              ("chain_reference", phase_chain_reference),
+              ("chain_path", phase_chain_path),
+              ("stitcher_path", phase_stitcher_path),
               ("stages", phase_stages), ("kernel_times", phase_kernel_times)]
     for name, fn in phases:
         try:

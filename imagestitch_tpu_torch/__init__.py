@@ -1,5 +1,5 @@
-"""imagestitch_tpu_torch — the 2-image panorama pipeline of
-`imagestitch_tpu` in PyTorch, for an NVIDIA H100.
+"""imagestitch_tpu_torch — the panorama pipelines of `imagestitch_tpu` in
+PyTorch, for an NVIDIA H100.
 
 Same stages, layouts and configuration as the JAX package (ORB or SIFT
 features); its three stitching TPU kernels are hand-written CUDA kernels
@@ -8,7 +8,10 @@ here (`ops.cuda_detect`, `ops.cuda_sift`, `ops.cuda_warp`, sources in
 entry points run on the CUDA card unless the caller names another device
 (the CPU runs every kernel's plain version).
 
-High-level API: `imagestitch_tpu_torch.stitch_pair(img1, img2)`.
+High-level API: `imagestitch_tpu_torch.stitch_pair(img1, img2)` for two
+images, `stitch(images)` (or `Stitcher(config).stitch(images)`) for N
+views of any sizes and layout, `stitch_chain(images)` for N same-size
+views in sequence.
 """
 
 from imagestitch_tpu_torch.config import (
@@ -22,7 +25,8 @@ from imagestitch_tpu_torch.config import (
     SeamConfig,
     WarpConfig,
 )
-from imagestitch_tpu_torch.pipeline import stitch_pair
+from imagestitch_tpu_torch.pipeline import (Stitcher, stitch, stitch_chain,
+                                            stitch_pair)
 from imagestitch_tpu_torch.types import CameraParams, ImageFeatures, MatchesInfo
 
 __all__ = [
@@ -37,6 +41,9 @@ __all__ = [
     "PipelineConfig",
     "RansacConfig",
     "SeamConfig",
+    "Stitcher",
     "WarpConfig",
+    "stitch",
+    "stitch_chain",
     "stitch_pair",
 ]

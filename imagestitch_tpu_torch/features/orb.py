@@ -141,28 +141,39 @@ def _orb_descriptors(blurred, xk, yk, angles, cfg: DetectorConfig):
     return (vals[:, 0::2] < vals[:, 1::2]).to(torch.uint8)
 
 
-def detect_and_compute(gray: torch.Tensor,
-                       cfg: DetectorConfig = DetectorConfig()
-                       ) -> ImageFeatures:
-    """Full ORB over one (H, W) grayscale image -> padded ImageFeatures
-    (keypoint xy in source-image coordinates)."""
-    H, W = gray.shape
-    dev = gray.device
+def orb_maps(grays: torch.Tensor, cfg: DetectorConfig = DetectorConfig()):
+    """The maps stage over a (B, H, W) batch of grayscale images: the
+    pyramid, then the detector maps of every level of every image from one
+    kernel launch (up to MAX_LEVELS levels a launch). Returns (levels,
+    maps): levels[l] (B, H_l, W_l) float32; maps[l] (nms_score, harris,
+    blurred), each (B, H_l, W_l)."""
+    pyr = build_pyramid(grays, cfg.nlevels, cfg.scale_factor,
+                        cfg.first_level)
+    pyr = [lv.contiguous() for lv in pyr]
+    maps = [m for i in range(0, len(pyr), MAX_LEVELS)
+            for m in detect_maps_levels(pyr[i:i + MAX_LEVELS],
+                                        float(cfg.fast_threshold),
+                                        cfg.harris_block_size)]
+    return pyr, maps
+
+
+def orb_select(levels, maps, view: int, hw: tuple[int, int],
+               cfg: DetectorConfig = DetectorConfig()) -> ImageFeatures:
+    """The selection stage for image `view` of the batch that `orb_maps`
+    returned, whose source is `hw` (H, W): border mask, block-max
+    candidates, per-cell top-k, Harris re-score, angles and descriptors
+    -> padded ImageFeatures (keypoint xy in source-image coordinates)."""
+    H, W = hw
+    dev = levels[0].device
     ncells = cfg.grid_rows * cfg.grid_cols
     quotas = _features_per_level(cfg)
-    pyr = build_pyramid(gray, cfg.nlevels, cfg.scale_factor, cfg.first_level)
 
-    # one kernel launch for the whole pyramid (up to MAX_LEVELS levels)
-    maps = [m for i in range(0, len(pyr), MAX_LEVELS)
-            for m in detect_maps_levels(
-                [img_l[None] for img_l in pyr[i:i + MAX_LEVELS]],
-                float(cfg.fast_threshold), cfg.harris_block_size)]
-
-    xs, ys, resp, angs, sizes, levels, valids, descs = \
+    xs, ys, resp, angs, sizes, lvls, valids, descs = \
         [], [], [], [], [], [], [], []
-    for lv, (img_l, lv_maps) in enumerate(zip(pyr, maps)):
+    for lv, (lv_imgs, lv_maps) in enumerate(zip(levels, maps)):
+        img_l = lv_imgs[view]
         Hl, Wl = img_l.shape
-        score, harris, blurred = (m[0] for m in lv_maps)
+        score, harris, blurred = (m[view] for m in lv_maps)
 
         # border mask (runByImageBorder with edge_threshold)
         b = cfg.edge_threshold
@@ -230,7 +241,7 @@ def detect_and_compute(gray: torch.Tensor,
         angs.append(ang)
         sizes.append(torch.full((n_l,), cfg.patch_size * s,
                                 dtype=torch.float32, device=dev))
-        levels.append(torch.full((n_l,), lv, dtype=torch.int32, device=dev))
+        lvls.append(torch.full((n_l,), lv, dtype=torch.int32, device=dev))
         valids.append(v)
         descs.append(d)
 
@@ -239,12 +250,21 @@ def detect_and_compute(gray: torch.Tensor,
         response=torch.cat(resp),
         angle=torch.cat(angs),
         size=torch.cat(sizes),
-        level=torch.cat(levels),
+        level=torch.cat(lvls),
         valid=torch.cat(valids),
         descriptors=torch.cat(descs, dim=0),
         img_size=torch.tensor([H, W], dtype=torch.int32, device=dev),
     )
     return _pad_or_trim(feats, cfg.max_keypoints)
+
+
+def detect_and_compute(gray: torch.Tensor,
+                       cfg: DetectorConfig = DetectorConfig()
+                       ) -> ImageFeatures:
+    """Full ORB over one (H, W) grayscale image -> padded ImageFeatures
+    (keypoint xy in source-image coordinates)."""
+    levels, maps = orb_maps(gray[None], cfg)
+    return orb_select(levels, maps, 0, tuple(gray.shape), cfg)
 
 
 def _pad_or_trim(f: ImageFeatures, capacity: int) -> ImageFeatures:

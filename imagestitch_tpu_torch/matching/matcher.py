@@ -3,7 +3,8 @@ matcher`, homography motion): exact Hamming (ORB) or squared-L2 (SIFT)
 2-NN in both directions with
 Lowe's ratio test, mutual-duplicate suppression, compaction to
 `max_matches` by ascending distance, center-normalized RANSAC, Brown–Lowe
-confidence and the second RANSAC pass on the inliers.
+confidence and the second RANSAC pass on the inliers. `match_all` runs it
+over the pairs of a batch of images.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from imagestitch_tpu_torch.features.orb import top_k_stable
 from imagestitch_tpu_torch.geometry.ransac import find_homography
 from imagestitch_tpu_torch.matching.hamming import (hamming_distance_matrix,
                                                     l2_distance_matrix)
-from imagestitch_tpu_torch.types import ImageFeatures, MatchesInfo
+from imagestitch_tpu_torch.types import (ImageFeatures, MatchesInfo,
+                                        index, stack)
 
 BIG = float(np.float32(3.0e38))
 REFIT_HYPOTHESES = 256
@@ -130,3 +132,35 @@ def match_pair(f1: ImageFeatures, f2: ImageFeatures, src_idx: int = 0,
                                 torch.zeros_like(res.num_inliers)),
         H=torch.where(h_ok, H, eye),
         h_valid=h_ok, confidence=conf)
+
+
+def pair_list(n: int, range_width: int = -1) -> list[tuple[int, int]]:
+    """The (i, j) pairs, i < j, that `match_all` matches: all of them, or
+    those with j - i <= range_width when range_width > 0."""
+    w = range_width if range_width > 0 else n
+    return [(i, j) for i in range(n) for j in range(i + 1, min(i + w + 1, n))]
+
+
+def match_pairs(feats: ImageFeatures, pairs,
+                cfg: MatcherConfig = MatcherConfig(),
+                rcfg: RansacConfig = RansacConfig(), draws=None,
+                generator: torch.Generator | None = None
+                ) -> list[MatchesInfo]:
+    """`match_pair` over the (i, j) `pairs` of a batched ImageFeatures
+    (leading axis = image). `draws`: optional mapping (i, j) -> (u_first,
+    u_refit), the pair's RANSAC draws; without it every pair draws from
+    `generator`."""
+    views = [index(feats, i) for i in range(feats.xy.shape[0])]
+    return [match_pair(views[i], views[j], i, j, cfg, rcfg,
+                       draws=None if draws is None else draws[(i, j)],
+                       generator=generator) for i, j in pairs]
+
+
+def match_all(feats: ImageFeatures, cfg: MatcherConfig = MatcherConfig(),
+              rcfg: RansacConfig = RansacConfig(), draws=None,
+              generator: torch.Generator | None = None) -> MatchesInfo:
+    """`match_pairs` over `pair_list(N, cfg.range_width)`, stacked in that
+    order."""
+    return stack(match_pairs(feats,
+                             pair_list(feats.xy.shape[0], cfg.range_width),
+                             cfg, rcfg, draws, generator))

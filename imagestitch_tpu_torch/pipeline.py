@@ -1,19 +1,26 @@
-"""The 2-image stitch (`imagestitch_tpu.pipeline`, the `stitch_pair` path):
-gray -> ORB on a 5-level pyramid (detector-maps kernel per level) or SIFT
-on 4 octaves (octave-maps kernel per octave) -> Hamming or L2 2-NN ->
-RANSAC homography -> focal + chained rotations -> ray
-bundle adjustment -> cylindrical warp of both images into one shared
-canvas (warp kernel, one launch) -> gain compensation -> DP seam ->
+"""The stitch drivers of `imagestitch_tpu.pipeline`: gray -> ORB on a
+5-level pyramid (one detector-maps launch for all levels of all images)
+or SIFT on 4 octaves (octave-maps kernel per octave and image) -> Hamming
+or L2 2-NN -> RANSAC homography -> focal + chained rotations -> ray
+bundle adjustment -> cylindrical warp of all images into one shared
+canvas (warp kernel, one launch) -> gain compensation -> DP seams ->
 20x20 seam dilate + feather blend -> bbox crop.
 
-Entry point: `stitch_pair(img1, img2, config=None, seed=0, device=None)`.
-It runs on the CUDA card unless the caller names another device; with
-device=None and no card it raises. Configuration kinds this package does
-not carry yet raise NotImplementedError naming their ROADMAP item.
+Entry points, each running on the CUDA card unless the caller names
+another device (with device=None and no card they raise):
+- `stitch_pair(img1, img2, config=None, seed=0, device=None)`: two images;
+- `stitch_chain(images, config=None, seed=0, device=None)`: N same-size
+  views matched i -> i+1 (with `chain_splice`, also i -> i+2);
+- `Stitcher(config).stitch(images)` and `stitch(images)`: N views of any
+  sizes and pair topology (all pairs, a spanning tree of the confident
+  ones, the largest component composed).
+Configuration kinds this package does not carry yet raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -24,14 +31,18 @@ from imagestitch_tpu_torch.blend.feather import feather_blend
 from imagestitch_tpu_torch.config import PipelineConfig
 from imagestitch_tpu_torch.exposure.gain import gain_compensate
 from imagestitch_tpu_torch.features import detect as detect_features
+from imagestitch_tpu_torch.features import detect_batched
 from imagestitch_tpu_torch.geometry.autocalib import _masked_median
 from imagestitch_tpu_torch.geometry.bundle import bundle_adjust
-from imagestitch_tpu_torch.geometry.rotation import estimate_cameras
-from imagestitch_tpu_torch.matching.matcher import match_pair
+from imagestitch_tpu_torch.geometry.rotation import (
+    estimate_cameras, estimate_cameras_host, estimate_cameras_spliced)
+from imagestitch_tpu_torch.matching.matcher import (match_all, match_pair,
+                                                    match_pairs, pair_list)
 from imagestitch_tpu_torch.ops.cuda_warp import warp_batched
 from imagestitch_tpu_torch.ops.image import dilate, rgb_to_gray
 from imagestitch_tpu_torch.seam.dp import dp_seam_pair
-from imagestitch_tpu_torch.types import CameraParams
+from imagestitch_tpu_torch.types import CameraParams, stack
+from imagestitch_tpu_torch.utils.log import StageTimer
 from imagestitch_tpu_torch.warp.projectors import _camera_mats
 from imagestitch_tpu_torch.warp.warper import roi_bounds
 
@@ -55,13 +66,17 @@ def set_full_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def check_supported(cfg: PipelineConfig) -> None:
-    """Raise NotImplementedError for configuration kinds not ported yet."""
+def check_supported(cfg: PipelineConfig, compose: bool = False) -> None:
+    """Raise NotImplementedError for configuration kinds not ported yet.
+    `compose`: the caller composes at `compose_megapix` (the Stitcher; the
+    pair and chain drivers do not read that field)."""
     todo = []
     if cfg.mode != "panorama":
         todo.append(("mode='scans'", 16))
     if cfg.work_megapix > 0:
         todo.append(("work_megapix", 13))
+    if compose and cfg.compose_megapix > 0:
+        todo.append(("compose_megapix", 13))
     if cfg.detector.kind == "orb" and cfg.detector.wta_k != 2:
         todo.append(("ORB wta_k 3/4", 13))
     if cfg.camera.ba_refine and cfg.camera.ba_kind != "ray":
@@ -154,11 +169,14 @@ def _blend_resolved(images, seam_masks, masks, cfg: PipelineConfig,
 
 
 def _seam_and_blend(images, masks, cfg: PipelineConfig,
-                    src_w: int | None = None, src_h: int | None = None):
-    """Pairwise seam resolution along the chain + blend on (N, H, W, C)
-    shared-frame canvases. The DP runs on a window bounded by the overlap
-    a two-view pair can have (1.1x the source size for the contracting
-    cylindrical/spherical warps, 1.3x otherwise, 128-aligned)."""
+                    src_w: int | None = None, src_h: int | None = None,
+                    edges=None):
+    """Pairwise seam resolution + blend on (N, H, W, C) shared-frame
+    canvases. `edges` orders the pairwise resolution (the Stitcher's
+    spanning tree); None means the chain (i, i+1). The DP runs on a window
+    bounded by the overlap a two-view pair can have (1.1x the source size
+    for the contracting cylindrical/spherical warps, 1.3x otherwise,
+    128-aligned)."""
     n = images.shape[0]
     fac = 1.1 if cfg.warp.kind in ("cylindrical", "spherical") else 1.3
     max_w = (-(-int(round(fac * src_w)) // 128) * 128
@@ -167,7 +185,9 @@ def _seam_and_blend(images, masks, cfg: PipelineConfig,
              if src_h is not None else None)
     seam_masks = [masks[i] for i in range(n)]
     if cfg.seam.kind != "none":
-        for u, v in [(i, i + 1) for i in range(n - 1)]:
+        if edges is None:
+            edges = [(i, i + 1) for i in range(n - 1)]
+        for u, v in edges:
             a2, b2, _ = dp_seam_pair(
                 images[u], images[v], seam_masks[u], seam_masks[v], False,
                 max_overlap_w=max_w, max_overlap_h=max_h,
@@ -272,6 +292,19 @@ def _crop_valid(pano: np.ndarray, valid: np.ndarray):
             valid[ys.min():ys.max() + 1, xs.min():xs.max() + 1])
 
 
+def _generator(dev: torch.device, seed: int) -> torch.Generator:
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _to_uint8(pano: torch.Tensor, valid: torch.Tensor):
+    """Read the canvas back, crop it to the valid bounding box, clip to
+    uint8."""
+    p, _ = _crop_valid(pano.cpu().numpy(), valid.cpu().numpy())
+    return np.clip(p, 0, 255).astype(np.uint8)
+
+
 def stitch_pair(img1, img2, config: PipelineConfig | None = None,
                 seed: int = 0, device=None, draws=None):
     """Two (H, W, 3) uint8 RGB arrays -> (pano uint8, metrics).
@@ -282,20 +315,292 @@ def stitch_pair(img1, img2, config: PipelineConfig | None = None,
     cfg = config or PipelineConfig()
     dev = resolve_device(device)
     set_full_precision()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
     t0 = time.perf_counter()
     a = torch.as_tensor(np.asarray(img1), device=dev)
     b = torch.as_tensor(np.asarray(img2), device=dev)
-    pano, valid, _, metrics = stitch_pair_impl(a, b, cfg, draws, gen)
-    pano = pano.cpu().numpy()
-    valid = valid.cpu().numpy()
+    pano, valid, _, metrics = stitch_pair_impl(a, b, cfg, draws,
+                                               _generator(dev, seed))
+    out = _to_uint8(pano, valid)
     total_ms = (time.perf_counter() - t0) * 1e3
-    pano, valid = _crop_valid(pano, valid)
-    out = np.clip(pano, 0, 255).astype(np.uint8)
     m = {}
     for k, v in metrics.items():
         v = v.detach().cpu().numpy()
         m[k] = v.item() if v.size == 1 else v.tolist()
     m["stitch_pair_total"] = total_ms
     return out, m
+
+
+def _adjust(cams: CameraParams, feats, mis, pairs, pair_valid,
+            cfg: PipelineConfig) -> CameraParams:
+    """Ray bundle adjustment over the inlier correspondences of stacked
+    pairs `mis`, whose (i, j) image indices are `pairs`."""
+    src = torch.stack([feats.xy[i][mis.pairs[p, :, 0].long()]
+                       for p, (i, _) in enumerate(pairs)])
+    dst = torch.stack([feats.xy[j][mis.pairs[p, :, 1].long()]
+                       for p, (_, j) in enumerate(pairs)])
+    return bundle_adjust(cams, src, dst, mis.inliers & mis.valid,
+                         mis.src_idx.long(), mis.dst_idx.long(), pair_valid,
+                         cfg.camera.ba_iters, cfg.camera.ba_kind)
+
+
+def register_chain(imgs: torch.Tensor,
+                   cfg: PipelineConfig = PipelineConfig(), draws=None,
+                   generator: torch.Generator | None = None):
+    """Stages 1-5 of the fixed-N chain on (N, H, W, 3) float32 images on
+    one device: one batched detect, the consecutive pairs i -> i+1 (and,
+    with cfg.chain_splice and N >= 3, the skip pairs i -> i+2), chained
+    cameras and bundle adjustment over those pairs.
+
+    A pair is good when its H is valid and its confidence exceeds
+    cfg.matcher.conf_thresh. Without the splice an image is reachable
+    when every link before it is good; with it, one broken link is bridged
+    by the skip pair around it. `draws`: optional mapping (i, j) ->
+    (u_first, u_refit) RANSAC draws per pair; without it every pair draws
+    from `generator`. Returns (feats, mis (the consecutive pairs), cams,
+    reachable (N,) bool)."""
+    check_supported(cfg)
+    N, H, W = imgs.shape[:3]
+    dev = imgs.device
+    feats = detect_batched(rgb_to_gray(imgs), cfg.detector)
+
+    def match(pairs):
+        return match_pairs(feats, pairs, cfg.matcher, cfg.ransac, draws,
+                           generator)
+
+    def good_of(mis):
+        return mis.h_valid & (mis.confidence > cfg.matcher.conf_thresh)
+
+    pairs = [(i, i + 1) for i in range(N - 1)]
+    mis_list = match(pairs)
+    mis = stack(mis_list)
+    good = good_of(mis)
+    sizes = torch.tensor([[H, W]] * N, dtype=torch.int32, device=dev)
+    if cfg.chain_splice and N >= 3:
+        pairs2 = [(j, j + 2) for j in range(N - 2)]
+        mis2_list = match(pairs2)
+        mis2 = stack(mis2_list)
+        cams, reachable = estimate_cameras_spliced(
+            mis.H, mis.h_valid, good, mis2.H, mis2.h_valid, good_of(mis2),
+            sizes)
+        # the skip pairs constrain the bundle adjustment too
+        pairs_ba = pairs + pairs2
+        mis_ba = stack(mis_list + mis2_list)
+    else:
+        reachable = torch.cat([
+            torch.ones(1, dtype=torch.bool, device=dev),
+            torch.cumprod(good.to(torch.int32), 0).to(torch.bool)])
+        cams = estimate_cameras(mis.H, mis.h_valid, sizes)
+        pairs_ba, mis_ba = pairs, mis
+    if cfg.camera.ba_refine:
+        cams = _adjust(cams, feats, mis_ba, pairs_ba,
+                       (mis_ba.confidence > cfg.camera.ba_conf_thresh)
+                       & mis_ba.h_valid, cfg)
+    return feats, mis, cams, reachable
+
+
+def stitch_chain_front_impl(imgs: torch.Tensor,
+                            cfg: PipelineConfig = PipelineConfig(),
+                            draws=None,
+                            generator: torch.Generator | None = None):
+    """Stages 1-7 of the fixed-N chain on (N, H, W, 3) images on one
+    device: `register_chain`, then one warp launch for all N views (the
+    unreachable ones masked out) and gain compensation.
+    Returns (warped (N, Hc, Wc, 3), masks (N, Hc, Wc), corner, metrics)."""
+    N, H, W = imgs.shape[:3]
+    imgs = imgs.to(torch.float32)
+    _, mis, cams, reachable = register_chain(imgs, cfg, draws, generator)
+    scale = warp_scale(cams)
+    canvas_hw = _pano_canvas_shape((H, W), N, cfg)
+    warped, masks, corner, overflow, roi_uvs = _warp_all_shared(
+        imgs, cams, scale, canvas_hw, cfg)
+    masks = masks & reachable[:, None, None]
+    warped = _apply_exposure(warped, masks, cfg)
+    metrics = {
+        "num_inliers": mis.num_inliers, "confidence": mis.confidence,
+        "h_valid": mis.h_valid, "focal": cams.focal[0],
+        "canvas_overflow": overflow, "roi_uv": roi_uvs,
+        "reachable": reachable,
+    }
+    return warped, masks, corner, metrics
+
+
+def stitch_chain_impl(imgs: torch.Tensor,
+                      cfg: PipelineConfig = PipelineConfig(), draws=None,
+                      generator: torch.Generator | None = None):
+    """(N, H, W, 3) chain on one device -> (pano canvas, valid, corner,
+    metrics): the front, then DP seams along the chain and the blend."""
+    H, W = imgs.shape[1:3]
+    warped, masks, corner, metrics = stitch_chain_front_impl(
+        imgs, cfg, draws, generator)
+    pano, valid = _seam_and_blend(warped, masks, cfg, src_w=W, src_h=H)
+    return pano, valid, corner, metrics
+
+
+def stitch_chain(images, config: PipelineConfig | None = None,
+                 seed: int = 0, device=None, draws=None):
+    """N same-size (H, W, 3) uint8 RGB views with consecutive overlap ->
+    (pano uint8, metrics), through `stitch_chain_impl`.
+
+    Runs on `device` (default: the CUDA card; with no card it raises).
+    RANSAC draws come from a torch.Generator seeded with `seed` on that
+    device, unless `draws` injects them per pair (i, j)."""
+    cfg = config or PipelineConfig()
+    dev = resolve_device(device)
+    set_full_precision()
+    timer = StageTimer(dev)
+    with timer.stage("stitch_chain_total"):
+        imgs = torch.as_tensor(np.stack([np.asarray(im) for im in images]),
+                               device=dev)
+        pano, valid, _, metrics = stitch_chain_impl(
+            imgs, cfg, draws, _generator(dev, seed))
+        out = _to_uint8(pano, valid)
+    m = {k: v.detach().cpu().numpy().tolist() for k, v in metrics.items()}
+    m.update(timer.summary())
+    return out, m
+
+
+def _np(v):
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+        else np.asarray(v)
+
+
+class _StageDumper:
+    """Optional per-stage .npz dumps, under the JAX package's names, for
+    parity debugging."""
+
+    def __init__(self, directory: str | None):
+        self.dir = directory
+        if directory:
+            os.makedirs(directory, exist_ok=True)
+
+    def __call__(self, name: str, **arrays):
+        if self.dir:
+            np.savez_compressed(os.path.join(self.dir, f"{name}.npz"),
+                                **{k: _np(v) for k, v in arrays.items()})
+
+
+class Stitcher:
+    """N-image panorama stitcher with per-stage timers: all-pairs matching
+    (or within cfg.matcher.range_width), confidence filtering, rotations
+    chained along the maximum spanning tree of the confident pairs (host),
+    ray bundle adjustment, one warp launch into a shared canvas, gain
+    compensation, DP seams along the tree's edges and the blend. Images
+    outside the tree's largest component are not composed.
+
+    Runs on `device` (default: the CUDA card; with no card it raises)."""
+
+    def __init__(self, config: PipelineConfig | None = None, device=None):
+        self.cfg = config or PipelineConfig()
+        check_supported(self.cfg, compose=True)
+        self.device = resolve_device(device)
+
+    def stitch(self, images, seed: int = 0, dump_stages: str | None = None,
+               draws=None):
+        """images: (H, W, 3) uint8 RGB views, whose sizes may differ: the
+        smaller ones are edge-replicate-padded to the common extent, their
+        keypoints past their true border (scaled per pyramid level) are
+        dropped, and the warp reads each within its true size.
+        `draws`: optional mapping (i, j) -> (u_first, u_refit) RANSAC draws
+        per matched pair. `dump_stages`: a directory to write
+        features.npz, matches.npz, cameras.npz, warped.npz and pano.npz.
+        Returns (pano uint8, metrics)."""
+        cfg = self.cfg
+        dev = self.device
+        n = len(images)
+        if n == 1:
+            return np.asarray(images[0]), {"n_images": 1}
+        if n == 2:
+            return stitch_pair(images[0], images[1], cfg, seed, dev,
+                               None if draws is None else draws[(0, 1)])
+        set_full_precision()
+        timer = StageTimer(dev)
+        dump = _StageDumper(dump_stages)
+        gen = _generator(dev, seed)
+
+        shapes = [tuple(np.asarray(im).shape[:2]) for im in images]
+        H = max(h for h, _ in shapes)
+        W = max(w for _, w in shapes)
+        full_sizes = (np.asarray(shapes, np.int32) if len(set(shapes)) > 1
+                      else None)
+        images = [np.pad(np.asarray(im), ((0, H - h), (0, W - w), (0, 0)),
+                         mode="edge") for im, (h, w) in zip(images, shapes)]
+        imgs = torch.as_tensor(np.stack(images), device=dev).to(
+            torch.float32)
+        work_sizes = (full_sizes if full_sizes is not None
+                      else np.asarray([[H, W]] * n, np.int32))
+
+        with timer.stage("detect"):
+            feats = detect_batched(rgb_to_gray(imgs), cfg.detector)
+            if full_sizes is not None:
+                # keypoints whose patch would reach past the true border,
+                # the border growing by scale_factor per pyramid level
+                b = cfg.detector.edge_threshold * torch.pow(
+                    torch.tensor(cfg.detector.scale_factor,
+                                 dtype=torch.float32, device=dev),
+                    feats.level.to(torch.float32))
+                sw = torch.as_tensor(work_sizes, dtype=torch.float32,
+                                     device=dev)
+                x, y = feats.xy[..., 0], feats.xy[..., 1]
+                inb = ((x >= b) & (x <= sw[:, None, 1] - 1.0 - b)
+                       & (y >= b) & (y <= sw[:, None, 0] - 1.0 - b))
+                feats = feats.replace(valid=feats.valid & inb)
+        dump("features", xy=feats.xy, valid=feats.valid,
+             response=feats.response, level=feats.level)
+
+        with timer.stage("match"):
+            pairs = pair_list(n, cfg.matcher.range_width)
+            ms = match_all(feats, cfg.matcher, cfg.ransac, draws, gen)
+        dump("matches", H=ms.H, num_inliers=ms.num_inliers,
+             confidence=ms.confidence, h_valid=ms.h_valid,
+             src_idx=ms.src_idx, dst_idx=ms.dst_idx)
+
+        with timer.stage("cameras"):
+            conf = _np(ms.confidence)
+            keep = conf > cfg.matcher.conf_thresh
+            cams, tree_edges, reachable = estimate_cameras_host(
+                _np(ms.H), _np(ms.src_idx), _np(ms.dst_idx),
+                _np(ms.num_inliers), _np(ms.h_valid) & keep, work_sizes,
+                return_tree=True, device=dev)
+
+        if cfg.camera.ba_refine:
+            with timer.stage("bundle_adjust"):
+                cams = _adjust(cams, feats, ms, pairs,
+                               torch.as_tensor(keep, device=dev)
+                               & ms.h_valid, cfg)
+        dump("cameras", focal=cams.focal, R=cams.R, ppx=cams.ppx,
+             ppy=cams.ppy)
+
+        with timer.stage("warp"):
+            scale = warp_scale(cams)
+            canvas_hw = _pano_canvas_shape((H, W), n, cfg)
+            warped, masks, corner, overflow, _ = _warp_all_shared(
+                imgs, cams, scale, canvas_hw, cfg, src_sizes=full_sizes)
+            masks = masks & torch.as_tensor(reachable, device=dev)[
+                :, None, None]
+
+        with timer.stage("exposure"):
+            warped = _apply_exposure(warped, masks, cfg)
+        dump("warped", warped=warped, masks=masks, corner=corner)
+
+        with timer.stage("seam_blend"):
+            pano, valid = _seam_and_blend(warped, masks, cfg, src_w=W,
+                                          src_h=H, edges=tree_edges)
+            pano, valid = _crop_valid(pano.cpu().numpy(),
+                                      valid.cpu().numpy())
+        dump("pano", pano=pano, valid=valid)
+        metrics = {
+            "n_images": n,
+            "focal": float(cams.focal[0]),
+            "pair_confidences": conf.tolist(),
+            "canvas_overflow": bool(overflow),
+            "reachable": np.asarray(reachable).tolist(),
+        }
+        metrics.update(timer.summary())
+        return np.clip(pano, 0, 255).astype(np.uint8), metrics
+
+
+def stitch(images, config: PipelineConfig | None = None, seed: int = 0,
+           device=None, draws=None):
+    """N-image entry point: `stitch(images) -> (pano uint8, metrics)`, a
+    `Stitcher` run once."""
+    return Stitcher(config, device).stitch(images, seed, draws=draws)

@@ -83,3 +83,18 @@ class CameraParams(_Replace):
         K[:, 1, 2] = self.ppy
         K[:, 2, 2] = 1.0
         return K
+
+
+def stack(items):
+    """Per-view ImageFeatures or per-pair MatchesInfo (any one class of
+    this module) stacked along a new leading axis: the batched form."""
+    cls = type(items[0])
+    return cls(**{f.name: torch.stack([getattr(x, f.name) for x in items])
+                  for f in dataclasses.fields(cls)})
+
+
+def index(batch, i: int):
+    """Item `i` of a stacked batch (every field indexed on its leading
+    axis)."""
+    return type(batch)(**{f.name: getattr(batch, f.name)[i]
+                          for f in dataclasses.fields(batch)})

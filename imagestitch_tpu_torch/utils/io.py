@@ -1,8 +1,9 @@
 """Synthetic test scenes with known geometry (host NumPy).
 
 The same generators as `imagestitch_tpu.utils.io` (`synthetic_pair`,
-`synthetic_rotation_pair`), kept as this package's own copy so that it
-imports nothing of the JAX package; same seeds give the same pixels.
+`synthetic_rotation_pair`, and the N-view `synthetic_sequence` and
+`synthetic_grid`), kept as this package's own copy so that it imports
+nothing of the JAX package; same seeds give the same pixels.
 """
 
 from __future__ import annotations
@@ -44,6 +45,32 @@ def synthetic_pair(height: int = 480, width: int = 640, overlap: float = 0.4,
     img1 = scene[:, :width]
     img2 = scene[:, shift:shift + width]
     return np.ascontiguousarray(img1), np.ascontiguousarray(img2), shift
+
+
+def synthetic_sequence(n: int, height: int = 480, width: int = 640,
+                       overlap: float = 0.5, seed: int = 7):
+    """N overlapping views sliding across one wide scene (the multi-image
+    panorama fixture). Returns (list of (H, W, 3) uint8, shift per step)."""
+    shift = int(round(width * (1.0 - overlap)))
+    scene = _render_scene(height, width + shift * (n - 1), seed)
+    views = [np.ascontiguousarray(scene[:, i * shift:i * shift + width])
+             for i in range(n)]
+    return views, shift
+
+
+def synthetic_grid(rows: int, cols: int, height: int = 480, width: int = 640,
+                   overlap: float = 0.5, seed: int = 7):
+    """rows x cols overlapping viewports tiling one large scene in both
+    directions (the 2-D panorama fixture: horizontal and vertical
+    overlaps). Returns (views row-major, shift_x, shift_y)."""
+    sx = int(round(width * (1.0 - overlap)))
+    sy = int(round(height * (1.0 - overlap)))
+    scene = _render_scene(height + sy * (rows - 1),
+                          width + sx * (cols - 1), seed)
+    views = [np.ascontiguousarray(
+                scene[r * sy:r * sy + height, c * sx:c * sx + width])
+             for r in range(rows) for c in range(cols)]
+    return views, sx, sy
 
 
 def _bilinear_sample(img: np.ndarray, x: np.ndarray, y: np.ndarray):

@@ -22,12 +22,30 @@ UNPORTED_KINDS = frozenset({
     "paniniA1.5B1"})
 
 
+def k_inverse(K: torch.Tensor) -> torch.Tensor:
+    """K⁻¹ of an upper-triangular intrinsic matrix, rounded as the JAX
+    package's LU solve rounds it: back substitution that multiplies by the
+    diagonal's reciprocals (K⁻¹[0, 2] = -ppx·(1/f), where a division would
+    give -ppx/f). The forward map's ROI takes its last bit from this: with
+    R = I and the plane warp, u0 = f·K⁻¹[0, 2] lands on -ppx or just below
+    it, and the canvas corner is its floor."""
+    K = K.to(torch.float32)
+    r = 1.0 / torch.diagonal(K)
+    zero = torch.zeros((), dtype=torch.float32, device=K.device)
+    x12 = (zero - K[1, 2] * r[2]) * r[1]
+    x01 = (zero - K[0, 1] * r[1]) * r[0]
+    x02 = (zero - K[0, 1] * x12 - K[0, 2] * r[2]) * r[0]
+    return torch.stack([torch.stack([r[0], x01, x02]),
+                        torch.stack([zero, r[1], x12]),
+                        torch.stack([zero, zero, r[2]])])
+
+
 def _camera_mats(K: torch.Tensor, R: torch.Tensor):
     """r_kinv = R·K⁻¹ (forward) and k_rinv = K·R⁻¹ (backward; the general
     inverse, so non-orthogonal chained R stay correct)."""
     K = K.to(torch.float32)
     R = R.to(torch.float32)
-    return R @ torch.linalg.inv(K), K @ torch.linalg.inv(R)
+    return R @ k_inverse(K), K @ torch.linalg.inv(R)
 
 
 def _ray(r_kinv, x, y):

@@ -89,6 +89,26 @@ def test_detect_levels_kernel_matches_plain(cuda, image, batch, block_size,
         assert float((k[2] - p[2]).abs().max()) <= 1e-3
 
 
+def test_detect_levels_batch_of_views_equals_one_view_launches(cuda):
+    """One launch for 8 views' 5-level pyramids (the chain's batched
+    detect): each view's three maps on every level equal, bit for bit,
+    a launch for that view alone."""
+    from imagestitch_tpu_torch.ops.pyramid import build_pyramid
+    rng = np.random.default_rng(8)
+    img = torch.as_tensor(rng.uniform(0, 255, (8, 270, 480)).astype(
+        np.float32), device=cuda)
+    pyr = [lv.contiguous() for lv in build_pyramid(img, 5, 1.3)]
+    n0 = cuda_detect.launch_count
+    got = cuda_detect.detect_maps_levels(pyr, 20.0)
+    assert cuda_detect.launch_count == n0 + 1
+    for b in range(8):
+        one = cuda_detect.detect_maps_levels(
+            [lv[b:b + 1].contiguous() for lv in pyr], 20.0)
+        for lv_maps, lv_one in zip(got, one):
+            for m, m1 in zip(lv_maps, lv_one):
+                assert torch.equal(m[b], m1[0])
+
+
 def test_detect_levels_wrapper_launches_only_the_kernel(cuda):
     """A detect_maps_levels call over a 5-level pyramid runs exactly one
     CUDA kernel, the detector maps, and no copy or fill."""
@@ -267,16 +287,17 @@ def test_warp_kernel_matches_plain(cuda, kind, mixed):
 
 
 def _yaw_warp_args(dev, n, h, w, c, canvas=None, shift=(0, 0),
-                   kind="cylindrical", focal=None):
+                   kind="cylindrical", focal=None, spread=0.1):
     """Seeded (n, h, w[, c]) images (c = 1: (n, h, w)) under cameras
-    spread in yaw; the canvas defaults to the pipeline's, and `shift`
-    moves the canvas origin up and left of the ROIs' union."""
+    spread in yaw over ±`spread` rad; the canvas defaults to the
+    pipeline's, and `shift` moves the canvas origin up and left of the
+    ROIs' union."""
     rng = np.random.default_rng(n * 1000 + h + c)
     shape = (n, h, w) if c == 1 else (n, h, w, c)
     imgs = torch.as_tensor(rng.uniform(0, 255, shape).astype(np.float32),
                            device=dev)
     focal = focal or 1.5 * w
-    yaw = np.linspace(-0.1, 0.1, n) if n > 1 else np.zeros(1)
+    yaw = np.linspace(-spread, spread, n) if n > 1 else np.zeros(1)
     R = np.stack([[[np.cos(a), 0, np.sin(a)], [0, 1, 0],
                    [-np.sin(a), 0, np.cos(a)]] for a in yaw])
     cams = cameras_from_numpy(dict(
@@ -300,13 +321,16 @@ def _yaw_warp_args(dev, n, h, w, c, canvas=None, shift=(0, 0),
     dict(n=2, h=60, w=80, c=3, canvas=(256, 701), shift=(200, 80),
          kind="plane"),
     dict(n=2, h=1080, w=1920, c=3, canvas=(1458, 4032), focal=1728.0),
+    dict(n=8, h=1080, w=1920, c=3, canvas=(1458, 16704), focal=1728.0,
+         spread=1.9),
 ], ids=["c1", "n1", "n3", "wc167", "c1_wc171_spherical", "outside_roi",
-        "outside_roi_wc701_plane", "main_1080p"])
+        "outside_roi_wc701_plane", "main_1080p", "chain8_1080p"])
 def test_warp_kernel_cases_match_plain(cuda, case):
     """The warp kernel against its plain version: one channel, one and
     three images, canvases whose width is no multiple of 4 (unaligned
     rows), canvases with whole 128x16 tiles outside every ROI, and the
-    main path's 1080p shapes. Masks equal except within 1e-3 px of the
+    main path's 1080p shapes, and the 8-view 1080p chain's canvas (2.3 GB
+    of output, 584 M values). Masks equal except within 1e-3 px of the
     validity boundary; values within 1e-2 where both are valid; zeros
     wherever the kernel's mask is false; one launch."""
     imgs, kr, scale, corners, roi, canvas, kind = _yaw_warp_args(cuda,
@@ -457,6 +481,46 @@ def test_stitch_pair_on_card_matches_cpu_and_counts_launches(cuda, kind,
     pp, mp = stitch_pair(a, b, cfg, device="cpu", draws=draws)
     for k in ("kpts1", "kpts2", "num_matches", "num_inliers", "h_valid"):
         assert mc[k] == mp[k], k
+    assert abs(mc["focal"] - mp["focal"]) <= 1e-3 * mp["focal"]
+    assert pc.shape == pp.shape
+    assert np.abs(pc.astype(float) - pp.astype(float)).mean() < 1.0
+
+
+def _counts():
+    return (cuda_detect.launch_count, cuda_sift.launch_count,
+            cuda_warp.launch_count)
+
+
+@pytest.mark.parametrize("entry", ["stitch_chain", "stitch"])
+def test_n_view_entry_on_card_matches_cpu_and_counts_launches(cuda, entry):
+    """A 4-view 160x224 sequence through stitch_chain and stitch() on the
+    card and on the CPU with the same RANSAC draws per pair, without
+    bundle adjustment (on a near-pure translation the adjuster's stop
+    moves by percents with float32 rounding): equal counts and reachable,
+    focal within 1e-3, pano within 1 intensity on average. On the card
+    each stitch launched the detector maps once (all 4 views' 5 levels)
+    and the warp once."""
+    from imagestitch_tpu_torch import CameraConfig, stitch, stitch_chain
+    from imagestitch_tpu_torch.matching.matcher import pair_list
+    from imagestitch_tpu_torch.utils.io import synthetic_sequence
+    views, _ = synthetic_sequence(4, 160, 224, overlap=0.5, seed=9)
+    g = torch.Generator().manual_seed(1)
+    pairs = ([(i, i + 1) for i in range(3)] if entry == "stitch_chain"
+             else pair_list(4))
+    draws = {p: (torch.rand((2048, 4), generator=g),
+                 torch.rand((256, 4), generator=g)) for p in pairs}
+    fn = stitch_chain if entry == "stitch_chain" else stitch
+    cfg = PipelineConfig(camera=CameraConfig(ba_refine=False))
+    c0 = _counts()
+    pc, mc = fn(views, cfg, device=cuda, draws=draws)
+    assert tuple(b - a for a, b in zip(c0, _counts())) == (1, 0, 1)
+    pp, mp = fn(views, cfg, device="cpu", draws=draws)
+    assert _counts()[0] == c0[0] + 1
+    keys = (("num_inliers", "h_valid", "reachable") if entry ==
+            "stitch_chain" else ("reachable", "n_images"))
+    for k in keys:
+        assert mc[k] == mp[k], k
+    assert all(mc["reachable"])
     assert abs(mc["focal"] - mp["focal"]) <= 1e-3 * mp["focal"]
     assert pc.shape == pp.shape
     assert np.abs(pc.astype(float) - pp.astype(float)).mean() < 1.0
