@@ -92,21 +92,48 @@ result line is printed):
                 ask, launches per stitch (detector maps 1, warp 1), the
                 median wall ms of 3 warm 1080p stitches and their
                 StageTimer stages.
-14. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
+14. photo_reference — stitch_pair_impl on the real-photo rotation pair on
+                the card and on the CPU with the same draws: both held to
+                the JAX package's committed golden (tests/data/
+                golden_photo_pano.*: focal 2%, inliers 0.7x, corner and
+                bbox 8 px, PSNR > 30 dB at 4x down) and to each other.
+15. multiband_path — bench.py's configs[2] (DP colour seam, 5-band
+                multi-band blend) on its 1080p pair: launches (detector
+                maps 2, warp 1), the median of 5 warm stitches, the stage
+                split; card against CPU at 192x256 with 3 bands
+                (multiband_reference).
+16. stream_path — StreamStitcher: calibrate on the 4-view 1080p sequence
+                (canvas 1458x8256; launches: detector maps 1, warp 1),
+                compose of the calibration frames within 1.0 mean of the
+                calibration pano, 10 brightened frame sets composed
+                (launches per compose: detector maps 0, warp 1), the
+                median compose ms and its split; card against CPU on a
+                panning camera's views, bundle adjustment on.
+17. batched_path — stitch_pairs_batched at bench.py's shapes (8 pairs at
+                1080p, 32 at 480x640, copies of one pair): launches per
+                batch (detector maps 1, warp 1), pairs/s beside the
+                per-pair loop's, the stage split; on batches of distinct
+                pairs, K1 and K2 (one scale per view, max error 0)
+                against their plain versions with their times, and four
+                1080p pairs against stitch_pair_impl with the same draws.
+18. cli       — `imagestitch_tpu_torch.cli demo --size 1080x1920` on the
+                card writes a PNG wider than 1920.
+19. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
                 of the 1080p SIFT plane stitch, and the device's busy share
                 of one stitch of each (torch.profiler, after the timing).
-15. kernel_times — K1's and K3's work for one stitch, the kernels alone from
+20. kernel_times — K1's and K3's work for one stitch, the kernels alone from
                 torch.profiler kernel events (median of 20 rounds) with L2
                 flushed by a 256 MB write and warm; K1 also as ten
-                one-level launches and as the chain's one launch for 8
-                views; K3 also by kernel name and by octave, and the CUDA
-                kernels the trace shows per stitch (8). Last, since once
-                the profiler has traced the card, later launches cost the
-                host more.
-16. kernels   — one line {"kernels": [...]}: launches on the main path
-                (`launches`) and on each path (`launches_by_path`), error
-                against the plain version, kernel / plain / library ms and
-                the least time the card could take (bound_ms).
+                one-level launches, as the chain's one launch for 8 views
+                and as the batches' for 16 1080p and 64 480x640 views; K3
+                also by kernel name and by octave, and the CUDA kernels the
+                trace shows per stitch (8). Last, since once the profiler
+                has traced the card, later launches cost the host more.
+21. kernels   — one line {"kernels": [...]}: launches on the main path
+                (`launches`) and on each path (`launches_by_path`, counted
+                over the path's run), error against the plain version,
+                kernel / plain / library ms and the least time the card
+                could take (bound_ms).
 
 Then the card's name and power limit, and the last line
 {"ok": true, "device": {...}}. Needs one card; builds everything it runs.
@@ -339,6 +366,39 @@ def _compare_warp(case, imgs, k_rinvs, scale, corner, roi_uvs, canvas_hw,
             int(mism.sum()), "max_abs_err": err}
 
 
+def _grid_sample_call(imgs, k_rinvs, scale, corners, canvas, kind):
+    """K2's library yardstick: F.grid_sample on maps precomputed with the
+    plain version's backward projection (one surface scale or one per
+    image), bilinear, zeros outside. Timed only; the port never calls it.
+    Returns the call."""
+    import torch
+    import torch.nn.functional as F
+    from imagestitch_tpu_torch.warp.projectors import PROJECTORS
+    from imagestitch_tpu_torch.warp.warper import image_scale
+    n, h, w = imgs.shape[:3]
+    Hc, Wc = canvas
+    grids = []
+    for i in range(n):
+        proj = PROJECTORS[kind].from_backward(k_rinvs[i],
+                                              image_scale(scale, i))
+        u = (torch.arange(Wc, device=imgs.device, dtype=torch.float32)
+             + corners[i, 0].float())[None, :].expand(Hc, Wc)
+        v = (torch.arange(Hc, device=imgs.device, dtype=torch.float32)
+             + corners[i, 1].float())[:, None].expand(Hc, Wc)
+        xm, ym, _ = proj.backward(u, v)
+        grids.append(torch.stack([xm / (w - 1) * 2 - 1,
+                                  ym / (h - 1) * 2 - 1], dim=-1))
+    grid = torch.stack(grids).contiguous()
+    del grids
+    src_cf = imgs.permute(0, 3, 1, 2).contiguous()
+
+    def call():
+        return F.grid_sample(src_cf, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    return call
+
+
 def phase_warp(state):
     import numpy as np
     import torch
@@ -349,7 +409,6 @@ def phase_warp(state):
         _pano_canvas_shape, register_pair, set_full_precision, warp_inputs,
         warp_scale)
     from imagestitch_tpu_torch.utils.io import synthetic_rotation_pair
-    from imagestitch_tpu_torch.warp.projectors import PROJECTORS
     from imagestitch_tpu_torch.warp.warper import warp_batched_plain
 
     set_full_precision()
@@ -416,24 +475,9 @@ def phase_warp(state):
         imgs, k_rinvs, scale, corners, roi_uvs, canvas, "cylindrical"),
         iters=5)
     # library yardstick: grid_sample on precomputed maps (timed only)
-    grids = []
+    lib_call = _grid_sample_call(imgs, k_rinvs, scale, corners, canvas,
+                                 "cylindrical")
     Hc, Wc = canvas
-    for i in range(2):
-        proj = PROJECTORS["cylindrical"].from_backward(k_rinvs[i], scale)
-        u = (torch.arange(Wc, device="cuda", dtype=torch.float32)
-             + corners[i, 0].float())[None, :].expand(Hc, Wc)
-        v = (torch.arange(Hc, device="cuda", dtype=torch.float32)
-             + corners[i, 1].float())[:, None].expand(Hc, Wc)
-        xm, ym, _ = proj.backward(u, v)
-        grids.append(torch.stack([xm / (1920 - 1) * 2 - 1,
-                                  ym / (1080 - 1) * 2 - 1], dim=-1))
-    grid = torch.stack(grids).contiguous()
-    src_cf = imgs.permute(0, 3, 1, 2).contiguous()
-
-    def lib_call():
-        return F.grid_sample(src_cf, grid, mode="bilinear",
-                             padding_mode="zeros", align_corners=True)
-
     lib_warm = cuda_ms(lib_call)
     lib_cold = median_ms(lib_call, N_TIMED, dev, flush)
     # what writing the outputs alone takes: zeros into same-shaped
@@ -929,7 +973,8 @@ def phase_chain_path(state):
                          "wall_ms_median": walls[1], "wall_ms": walls,
                          "first_ms": m["stitch_chain_total"]}
     stages = _chain_stages(seqs["chain8_1080p"][0], 3)
-    k1 = _hold_k1_batch(state, seqs["chain8_1080p"][0])
+    k1, state["k1_chain_call"] = _hold_k1_batch(seqs["chain8_1080p"][0])
+    state["k1"]["chain8"] = k1
     k2 = _hold_k2_chain(state, seqs["chain8_1080p"][0])
     emit({"phase": "chain_path", "launches": launches, "chains": summary,
           "chain8_stages_ms": stages, "k1_b8": k1, "k2_chain8": k2,
@@ -995,10 +1040,11 @@ def _chain_stages(views, n_warm: int):
     return {"ms": stages, "total_ms": sum(stages.values())}
 
 
-def _hold_k1_batch(state, views):
-    """K1 in one launch for 8 views' five 1080p levels against the plain
-    version (phase detect's tolerances); the wrapper and plain ms, and the
-    call for phase kernel_times."""
+def _hold_k1_batch(views):
+    """K1 in one launch for the views' five levels against the plain
+    version (phase detect's tolerances). Returns (the numbers: shapes,
+    errors, wrapper and plain ms, bound; the call, which phase
+    kernel_times times alone)."""
     import numpy as np
     import torch
     from imagestitch_tpu_torch.ops.cuda_detect import (detect_maps_levels,
@@ -1014,31 +1060,26 @@ def _hold_k1_batch(state, views):
     def call():
         return detect_maps_levels(levels, 20.0)
 
-    state["k1_chain_call"] = call
     px = sum(lv.numel() for lv in levels)
     b_ms, b_by = bound_ms(16.0 * px, DETECT_OPS_PER_PX * px)
-    out = {"shapes": [list(lv.shape) for lv in levels], "max_abs_err": worst,
-           "wrapper_ms": cuda_ms(call),
+    out = {"views": len(views), "shapes": [list(lv.shape) for lv in levels],
+           "max_abs_err": worst, "wrapper_ms": cuda_ms(call),
            "plain_ms": cuda_ms(lambda: [detect_maps_plain(lv, 20.0)
                                         for lv in levels], iters=3, warmup=1),
-           "bound_ms": b_ms, "bound_by": b_by}
-    state["k1"]["chain8"] = out
-    return out
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": 16.0 * px}
+    return out, call
 
 
 def _hold_k2_chain(state, views):
     """K2 into the 8-view chain canvas, cameras from registering the chain
-    on the card, against the plain version (phase warp's tolerances); the
-    kernel alone with L2 flushed and warm, and the plain version."""
+    on the card, against the plain version (phase warp's tolerances), with
+    its times (`_hold_k2`)."""
     import numpy as np
     import torch
     from imagestitch_tpu_torch.config import PipelineConfig
-    from imagestitch_tpu_torch.ops.cuda_warp import warp_launcher
     from imagestitch_tpu_torch.pipeline import (
         _pano_canvas_shape, register_chain, set_full_precision, warp_inputs,
         warp_scale)
-    from imagestitch_tpu_torch.utils.timing import FLUSH_BYTES, median_ms
-    from imagestitch_tpu_torch.warp.warper import warp_batched_plain
     set_full_precision()
     dev = torch.device("cuda")
     cfg = PipelineConfig()
@@ -1052,29 +1093,46 @@ def _hold_k2_chain(state, views):
     canvas = _pano_canvas_shape((h, w), n, cfg)
     k_rinvs, corner, roi_uvs, overflow = warp_inputs(cams, scale, (h, w), n,
                                                      canvas, cfg)
-    res = _compare_warp("chain8_1080p", imgs, k_rinvs, scale, corner,
-                        roi_uvs, canvas, "cylindrical")
-    corners = corner.expand(n, 2)
+    out = _hold_k2("chain8_1080p", imgs, k_rinvs, scale, corner.expand(n, 2),
+                   roi_uvs, canvas, "cylindrical")
+    out["canvas_overflow"] = bool(overflow)
+    state["k2"]["chain8"] = {k: out[k] for k in (
+        "canvas", "max_abs_err", "ms", "warm_ms", "plain_ms", "library_ms",
+        "bound_ms", "bound_by")}
+    return out
+
+
+def _hold_k2(case, imgs, k_rinvs, scale, corners, roi_uvs, canvas, kind):
+    """K2 on these inputs against its plain version (`_compare_warp`), then
+    the kernel alone with L2 flushed (ms) and warm, the plain version, and
+    F.grid_sample on precomputed maps with L2 flushed (library_ms)."""
+    import torch
+    from imagestitch_tpu_torch.ops.cuda_warp import warp_launcher
+    from imagestitch_tpu_torch.utils.timing import FLUSH_BYTES, median_ms
+    from imagestitch_tpu_torch.warp.warper import warp_batched_plain
+    res = _compare_warp(case, imgs, k_rinvs, scale, corners, roi_uvs,
+                        canvas, kind)
     launch, _, _ = warp_launcher(imgs, k_rinvs, scale, corners, roi_uvs,
-                                 canvas, "cylindrical")
+                                 canvas, kind)
+    dev = imgs.device
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     cold = median_ms(launch, N_TIMED, dev, flush)
-    del flush
+    lib = _grid_sample_call(imgs, k_rinvs, scale, corners, canvas, kind)
+    lib_cold = median_ms(lib, N_TIMED, dev, flush)
+    del flush, lib
     warm = cuda_ms(launch)
     plain = cuda_ms(lambda: warp_batched_plain(
-        imgs, k_rinvs, scale, corners, roi_uvs, canvas, "cylindrical"),
+        imgs, k_rinvs, scale, corners, roi_uvs, canvas, kind),
         iters=2, warmup=1)
+    n = imgs.shape[0]
     Hc, Wc = canvas
     nbytes = imgs.numel() * 4 + n * Hc * Wc * (3 * 4 + 1)
     b_ms, b_by = bound_ms(nbytes, n * (WARP_OPS_PER_PX * Hc * Wc
                                        + WARP_OPS_PER_LINE * (Hc + Wc)))
-    out = {**res, "canvas_overflow": bool(overflow), "ms": cold,
-           "warm_ms": warm, "plain_ms": plain, "bound_ms": b_ms,
-           "bound_by": b_by, "output_gb": n * Hc * Wc * 13 / 1e9}
-    state["k2"]["chain8"] = {k: out[k] for k in (
-        "canvas", "max_abs_err", "ms", "warm_ms", "plain_ms", "bound_ms",
-        "bound_by")}
-    return out
+    return {**res, "views": n, "ms": cold, "warm_ms": warm,
+            "plain_ms": plain, "library_ms": lib_cold, "bound_ms": b_ms,
+            "bound_by": b_by, "output_gb": n * Hc * Wc * 13 / 1e9,
+            "input_gb": imgs.numel() * 4 / 1e9}
 
 
 def phase_stitcher_path(state):
@@ -1135,6 +1193,405 @@ def phase_stitcher_path(state):
           "card": state["name"], "smi": state["smi"]})
 
 
+def _golden(name, pano, valid, corner, m, meta, gold):
+    """tests/test_golden.py's tolerances against the committed golden of
+    the photo pair: focal within 2%, inliers >= 0.7x, corner and bbox
+    within 8 px, PSNR > 30 dB on the 4x box-downsampled pano."""
+    import numpy as np
+
+    def box(img):
+        h, w = img.shape[0] // 4 * 4, img.shape[1] // 4 * 4
+        img = img[:h, :w].astype(np.float32)
+        return img.reshape(h // 4, 4, w // 4, 4, -1).mean(axis=(1, 3))
+
+    ys, xs = np.nonzero(valid)
+    bbox = [int(ys.min()), int(xs.min()), int(ys.max()) + 1,
+            int(xs.max()) + 1]
+    down = box(pano[bbox[0]:bbox[2], bbox[1]:bbox[3]])
+    vdown = box(valid[bbox[0]:bbox[2], bbox[1]:bbox[3], None].astype(
+        np.float32))[..., 0]
+    h = min(down.shape[0], gold.shape[0])
+    w = min(down.shape[1], gold.shape[1])
+    both = vdown[:h, :w] > 0.99
+    mse = float(np.mean((down[:h, :w][both] - gold[:h, :w][both]) ** 2))
+    psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-9))
+    focal, inl = float(m["focal"]), int(m["num_inliers"])
+    check(bool(m["h_valid"]), f"{name}: h_valid false")
+    check(abs(focal - meta["focal"]) / meta["focal"] < 0.02,
+          f"{name}: focal {focal} vs golden {meta['focal']}")
+    check(inl >= int(0.7 * meta["num_inliers"]),
+          f"{name}: {inl} inliers vs golden {meta['num_inliers']}")
+    check(max(abs(int(corner[0]) - meta["corner"][0]),
+              abs(int(corner[1]) - meta["corner"][1])) <= 8,
+          f"{name}: corner {corner.tolist()} vs golden {meta['corner']}")
+    check(max(abs(a - b) for a, b in zip(bbox, meta["bbox"])) <= 8,
+          f"{name}: bbox {bbox} vs golden {meta['bbox']}")
+    check(both.mean() > 0.8 and psnr > 30.0, f"{name}: PSNR {psnr}")
+    return {"focal": focal, "inliers": inl, "corner": corner.tolist(),
+            "bbox": bbox, "psnr_db": psnr}
+
+
+def phase_photo_reference(state):
+    """stitch_pair_impl (the default configuration) on the real-photo
+    rotation pair, on the card and on the CPU with the same RANSAC draws:
+    both held to the JAX package's committed golden
+    (tests/data/golden_photo_pano.{png,json}) and to each other (equal
+    counts and corner, focal within 1e-3, valid-mask IoU >= 0.999, pano
+    within 1 intensity on average where both are valid)."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import PipelineConfig
+    from imagestitch_tpu_torch.pipeline import (set_full_precision,
+                                                stitch_pair_impl)
+    from imagestitch_tpu_torch.utils.io import imread, photo_rotation_pair
+    data = os.path.join(HERE, "tests", "data")
+    with open(os.path.join(data, "golden_photo_pano.json")) as f:
+        meta = json.load(f)
+    gold = imread(os.path.join(data, "golden_photo_pano.png")).astype(
+        np.float32)
+    a, b, _, f_true = photo_rotation_pair()
+    g = torch.Generator().manual_seed(1)
+    draws = (torch.rand((2048, 4), generator=g),
+             torch.rand((256, 4), generator=g))
+    set_full_precision()
+    out, held = {}, {}
+    for dev in ("cuda", "cpu"):
+        p, v, c, m = stitch_pair_impl(torch.as_tensor(a, device=dev),
+                                      torch.as_tensor(b, device=dev),
+                                      PipelineConfig(), draws)
+        out[dev] = (p.cpu().numpy(), v.cpu().numpy(), c.cpu().numpy(),
+                    {k: x.cpu().numpy() for k, x in m.items()})
+        held[dev] = _golden(f"photo {dev}", *out[dev], meta, gold)
+    (pc, vc, cc, mc), (pp, vp, cp, mp) = out["cuda"], out["cpu"]
+    for k in ("kpts1", "kpts2", "num_matches", "num_inliers"):
+        check(int(mc[k]) == int(mp[k]), f"photo {k}: card {mc[k]} vs CPU "
+              f"{mp[k]}")
+    check(np.array_equal(cc, cp), f"photo corner card {cc} vs CPU {cp}")
+    rel = abs(float(mc["focal"]) - float(mp["focal"])) / float(mp["focal"])
+    check(rel < 1e-3, f"photo focal card {mc['focal']} vs CPU {mp['focal']}")
+    iou = float((vc & vp).sum() / max((vc | vp).sum(), 1))
+    both = vc & vp
+    diff = float(np.abs(pc[both] - pp[both]).mean())
+    check(iou >= 0.999 and diff < 1.0, f"photo IoU {iou}, diff {diff}")
+    emit({"phase": "photo_reference", "golden": meta, "card": held["cuda"],
+          "cpu": held["cpu"], "f_true": f_true, "iou": iou,
+          "canvas_mean_abs_diff": diff})
+
+
+def phase_multiband_path(state):
+    """bench.py's configs[2]: the DP colour seam and a 5-band multi-band
+    blend on synthetic_pair(1080, 1920, overlap=0.4, seed=0) through
+    stitch_pair: launches (detector maps 2, warp 1), h_valid, the pano's
+    width, the median of 5 warm stitches and the stage split; then card
+    against CPU at 192x256 with 3 bands."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import (BlendConfig, PipelineConfig,
+                                       SeamConfig, stitch_pair)
+    from imagestitch_tpu_torch.utils.io import synthetic_pair
+    cfg = PipelineConfig(seam=SeamConfig(kind="dp_color"),
+                         blend=BlendConfig(kind="multiband", num_bands=5))
+    i1, i2, shift = synthetic_pair(1080, 1920, overlap=0.4, seed=0)
+    _reset_counts()
+    pano, m = stitch_pair(i1, i2, cfg)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    want = {"detect_maps": 2, "sift_octave_maps": 0, "warp_batched": 1,
+            "slab_probe": 0}
+    check(launches == want, f"kernel launches {launches}, want {want}")
+    _record_path(state, "multiband_path", launches)
+    check(m["h_valid"], "multiband: h_valid false")
+    check(pano.dtype == np.uint8 and pano.std() > 20, "multiband: pano")
+    check(abs(pano.shape[1] - (1920 + shift)) < 0.1 * (1920 + shift),
+          f"multiband pano width {pano.shape[1]} vs {1920 + shift}")
+    walls = _warm_walls(lambda: stitch_pair(i1, i2, cfg))
+    stages = _stage_breakdown(i1, i2, cfg, 3, trace=False)
+    _card_vs_cpu("multiband_reference", PipelineConfig(
+        blend=BlendConfig(kind="multiband", num_bands=3)))
+    emit({"phase": "multiband_path", "launches": launches,
+          "pano": list(pano.shape), "focal": m["focal"],
+          "inliers": m["num_inliers"], "wall_ms_median": walls[2],
+          "wall_ms": walls, "stages": stages, "card": state["name"],
+          "smi": state["smi"]})
+
+
+STREAM_FRAMES = 10
+
+
+def phase_stream_path(state):
+    """StreamStitcher: calibrate on the 4-view 1080x1920 sequence of phase
+    stitcher_path (canvas 1458x8256), then compose 10 frame sets
+    brightened by 12-21: calibrate's wall ms and launches (detector maps 1,
+    warp 1), compose of the calibration frames within 1.0 mean of the
+    calibration pano, each brightened set brighter in the same shape,
+    launches per compose (detector maps 0, warp 1), the median compose ms
+    and its split. Then card against CPU with the default configuration
+    (bundle adjustment on) on a panning camera's four 160x224 views."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import StreamStitcher
+    from imagestitch_tpu_torch.matching.matcher import pair_list
+    from imagestitch_tpu_torch.utils.io import (synthetic_pan_sequence,
+                                                synthetic_sequence)
+    seq4, shift4 = synthetic_sequence(4, 1080, 1920, overlap=0.5, seed=7)
+    ss = StreamStitcher()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pano_cal, m = ss.calibrate(seq4)
+    cal_ms = (time.perf_counter() - t0) * 1e3
+    cal_launches = _read_counts()
+    want = {"detect_maps": 1, "sift_octave_maps": 0, "warp_batched": 1,
+            "slab_probe": 0}
+    check(cal_launches == want, f"calibrate launches {cal_launches}, "
+          f"want {want}")
+    _record_path(state, "stream_calibrate", cal_launches)
+    cal_stages = dict(ss.stages_ms)
+    check(all(m["reachable"]), f"stream reachable {m['reachable']}")
+    check(pano_cal.shape[1] > 1920 + 2 * shift4 and pano_cal.std() > 20,
+          f"stream calibration pano {pano_cal.shape}")
+    canvas = ss.frozen("canvas_hw")
+    check(tuple(canvas) == (1458, 8256), f"stream canvas {canvas}")
+    same = ss.compose(seq4)
+    gate = float(np.abs(same.astype(np.float64) - pano_cal).mean()) \
+        if same.shape == pano_cal.shape else float("inf")
+    check(gate < 1.0, f"compose of the calibration frames: {same.shape} vs "
+          f"{pano_cal.shape}, mean abs diff {gate}")
+
+    frames = [[np.clip(v.astype(np.int32) + 12 + k, 0, 255).astype(np.uint8)
+               for v in seq4] for k in range(STREAM_FRAMES)]
+    _reset_counts()
+    walls, splits = [], []
+    for fr in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = ss.compose(fr)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        splits.append(dict(ss.stages_ms))
+        check(p.shape == pano_cal.shape and p.mean() > pano_cal.mean(),
+              f"brightened compose {p.shape}, mean {p.mean()} vs "
+              f"{pano_cal.mean()}")
+    comp_launches = _read_counts()
+    want = {"detect_maps": 0, "sift_octave_maps": 0,
+            "warp_batched": STREAM_FRAMES, "slab_probe": 0}
+    check(comp_launches == want, f"{STREAM_FRAMES} composes launched "
+          f"{comp_launches}, want {want}")
+    _record_path(state, "stream_compose", comp_launches)
+    split = {k: float(np.median([s[k] for s in splits])) for k in splits[0]}
+
+    # card against CPU, bundle adjustment on, the same draws per pair
+    views = synthetic_pan_sequence(4)
+    g = torch.Generator().manual_seed(3)
+    draws = {p: (torch.rand((2048, 4), generator=g),
+                 torch.rand((256, 4), generator=g)) for p in pair_list(4)}
+    pc, mc = StreamStitcher().calibrate(views, draws=draws)
+    pp, mp = StreamStitcher(device="cpu").calibrate(views, draws=draws)
+    check(mc["reachable"] == mp["reachable"] == [True] * 4,
+          f"pan reachable card {mc['reachable']} vs CPU {mp['reachable']}")
+    rel = abs(mc["focal"] - mp["focal"]) / mp["focal"]
+    check(rel < 1e-3, f"pan focal card {mc['focal']} vs CPU {mp['focal']}")
+    check(pc.shape == pp.shape, f"pan pano {pc.shape} vs CPU {pp.shape}")
+    diff = float(np.abs(pc.astype(np.float64) - pp).mean())
+    check(diff < 1.0, f"pan pano mean abs diff {diff}")
+    walls_sorted = sorted(walls)
+    emit({"phase": "stream_path", "canvas": list(canvas),
+          "pano": list(pano_cal.shape), "focal": m["focal"],
+          "calibrate_ms": cal_ms, "calibrate_stages_ms": cal_stages,
+          "calibrate_launches": cal_launches,
+          "compose_same_mean_abs_diff": gate,
+          "compose_ms_median": walls_sorted[len(walls) // 2],
+          "compose_ms": walls_sorted, "compose_split_ms": split,
+          "compose_launches": comp_launches, "composes": STREAM_FRAMES,
+          "pan_card_vs_cpu": {"focal_card": mc["focal"],
+                              "focal_cpu": mp["focal"],
+                              "pano": list(pc.shape),
+                              "pano_mean_abs_diff": diff},
+          "card": state["name"], "smi": state["smi"]})
+
+
+# bench.py's batched shapes (configs[4]): (name, pairs, height, width)
+BATCH_CASES = (("pairs8_1080p", 8, 1080, 1920), ("pairs32_vga", 32, 480, 640))
+BATCH_STAGES = ("upload", "detect", "match", "cameras", "warp", "exposure",
+                "seam_blend")
+
+
+def _batch_split(pairs_np, cfg):
+    """Wall ms of each stage of one stitch_pairs_batched call (a
+    StageTimer, synchronized between stages), the second of two runs."""
+    import torch
+    from imagestitch_tpu_torch.parallel.batch import (
+        stitch_pairs_batched_impl)
+    from imagestitch_tpu_torch.utils.log import StageTimer
+    for _ in range(2):
+        timer = StageTimer("cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        with timer.stage("upload"):
+            x = torch.as_tensor(pairs_np, device="cuda").float()
+        stitch_pairs_batched_impl(x, cfg, generator=gen, timer=timer)
+    return timer.summary()
+
+
+def phase_batched_path(state):
+    """stitch_pairs_batched at bench.py's shapes with B copies of one pair
+    (synthetic_pair(H, W, overlap=0.4, seed=0)): 8 pairs at 1080x1920 (16
+    canvases of 1458x4032) and 32 at 480x640 (64 of 648x1344). Launches per
+    batch (detector maps 1, warp 1), every pair h_valid, pairs/s (median
+    of 3 calls), the per-pair loop over stitch_pair_impl as the yardstick
+    (median of 3), the stage split. Then a batch of distinct pairs at each
+    shape (other seeds and overlaps, so other surface scales): K1 on its
+    views and K2 on its launch's own inputs (one scale per view) against
+    their plain versions, K2 with max error 0; and at 1080p each of the
+    first 4 pairs equal to stitch_pair_impl on it with the same draws
+    (equal corner and inliers, canvas within 0.5 on average)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import PipelineConfig, stitch_pairs_batched
+    from imagestitch_tpu_torch.parallel import batch as batch_mod
+    from imagestitch_tpu_torch.pipeline import (_pano_canvas_shape,
+                                                stitch_pair_impl)
+    from imagestitch_tpu_torch.utils.io import synthetic_pair
+    cfg = PipelineConfig()
+    vert = cfg.replace(seam=dataclasses.replace(cfg.seam, orient="vertical"))
+    bench = {}
+    for name, b, h, w in BATCH_CASES:
+        i1, i2, _ = synthetic_pair(h, w, overlap=0.4, seed=0)
+        pair = np.stack([i1, i2])
+        bench[name] = np.broadcast_to(pair, (b,) + pair.shape).copy()
+    _reset_counts()
+    outs = {name: stitch_pairs_batched(p) for name, p in bench.items()}
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    want = {"detect_maps": len(bench), "sift_octave_maps": 0,
+            "warp_batched": len(bench), "slab_probe": 0}
+    check(launches == want, f"kernel launches {launches}, want {want}")
+    _record_path(state, "batched", launches)
+
+    summary = {}
+    state.setdefault("k1_batched_calls", {})
+    for name, b, h, w in BATCH_CASES:
+        panos, valids, corners, m = outs[name]
+        canvas = _pano_canvas_shape((h, w), 2, cfg)
+        check(tuple(panos.shape) == (b,) + tuple(canvas) + (3,),
+              f"{name}: panos {tuple(panos.shape)}")
+        check(bool(m["h_valid"].all()), f"{name}: h_valid {m['h_valid']}")
+        check(bool(torch.isfinite(panos).all()), f"{name}: non-finite pano")
+        widths = valids.any(dim=1).sum(dim=1)
+        check(bool((widths > w).all()), f"{name}: pano widths {widths}")
+        pairs = bench[name]
+
+        def batched(p=pairs):
+            out = stitch_pairs_batched(p)
+            torch.cuda.synchronize()
+            return out
+
+        def loop(p=pairs):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            x = torch.as_tensor(p, device="cuda").float()
+            for k in range(x.shape[0]):
+                stitch_pair_impl(x[k, 0], x[k, 1], vert, generator=gen)
+            torch.cuda.synchronize()
+
+        walls = _warm_walls(batched, 3)
+        loop_walls = _warm_walls(loop, 3)
+        summary[name] = {
+            "pairs": b, "canvas": list(canvas),
+            "pairs_per_s": b / (walls[1] / 1e3), "wall_ms_median": walls[1],
+            "wall_ms": walls,
+            "loop_pairs_per_s": b / (loop_walls[1] / 1e3),
+            "loop_wall_ms_median": loop_walls[1], "loop_wall_ms": loop_walls,
+            "stages_ms": _batch_split(pairs, vert),
+            "focal": m["focal"].tolist(), "inliers": m["num_inliers"].tolist()}
+    del outs
+
+    # distinct pairs: K2's own inputs captured from the batch's launch
+    k1_held, k2_held, equal = {}, {}, []
+    for name, b, h, w in BATCH_CASES:
+        pairs = np.stack([np.stack(synthetic_pair(
+            h, w, overlap=0.3 + 0.3 * k / b, seed=10 + k)[:2])
+            for k in range(b)])
+        g = torch.Generator().manual_seed(6)
+        draws = {k: (torch.rand((2048, 4), generator=g),
+                     torch.rand((256, 4), generator=g)) for k in range(b)}
+        seen = []
+        inner = batch_mod.warp_batched
+
+        def spy(*args, **kw):
+            seen.append(args)
+            return inner(*args, **kw)
+
+        batch_mod.warp_batched = spy
+        try:
+            panos, valids, corners, m = stitch_pairs_batched(pairs,
+                                                             draws=draws)
+        finally:
+            batch_mod.warp_batched = inner
+        check(len(seen) == 1, f"{name}: {len(seen)} warp calls")
+        imgs, k_rinvs, scale, cn, roi_uvs, canvas, kind = seen[0]
+        n_scales = int(torch.unique(scale).numel())
+        check(n_scales == b, f"{name}: {n_scales} distinct scales of {b}")
+        k2 = _hold_k2(name, imgs, k_rinvs, scale, cn, roi_uvs, canvas, kind)
+        check(k2["max_abs_err"] == 0.0, f"{name}: K2 max error "
+              f"{k2['max_abs_err']}")
+        k2_held[name] = {**k2, "distinct_scales": n_scales}
+        views = [v for pair in pairs for v in pair]
+        k1_held[name], state["k1_batched_calls"][name] = _hold_k1_batch(
+            views)
+        if name == "pairs8_1080p":
+            x = torch.as_tensor(pairs, device="cuda").float()
+            for k in range(min(4, b)):
+                p1, v1, c1, m1 = stitch_pair_impl(x[k, 0], x[k, 1], vert,
+                                                  draws[k])
+                d = float((p1 - panos[k]).abs().mean())
+                ok = (torch.equal(c1, corners[k])
+                      and int(m1["num_inliers"]) == int(m["num_inliers"][k]))
+                check(ok and d < 0.5, f"pair {k}: corner {c1.tolist()} vs "
+                      f"{corners[k].tolist()}, inliers "
+                      f"{int(m1['num_inliers'])} vs "
+                      f"{int(m['num_inliers'][k])}, mean diff {d}")
+                equal.append({"pair": k, "mean_abs_diff": d,
+                              "bit_equal": bool(torch.equal(p1, panos[k])
+                                                and torch.equal(v1,
+                                                                valids[k]))})
+        del panos, valids, imgs
+    state["k1"]["batched"] = k1_held
+    state["k2"]["batched"] = {n: {k: v[k] for k in (
+        "canvas", "views", "max_abs_err", "ms", "warm_ms", "plain_ms",
+        "library_ms", "bound_ms", "bound_by")} for n, v in k2_held.items()}
+    emit({"phase": "batched_path", "launches": launches, "bench": summary,
+          "distinct_equal_single": equal, "k1": k1_held, "k2": k2_held,
+          "card": state["name"], "smi": state["smi"]})
+
+
+def phase_cli(state):
+    """python -m imagestitch_tpu_torch.cli demo --size 1080x1920 on the
+    card: a PNG wider than 1920, launches of one stitch_pair (detector maps
+    2, warp 1)."""
+    import torch
+    from imagestitch_tpu_torch.cli import main as cli_main
+    from imagestitch_tpu_torch.utils.io import imread
+    out = os.path.join(HERE, "build", "cli_demo_1080p.png")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    _reset_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(["demo", "--size", "1080x1920", "-o", out])
+    wall = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    want = {"detect_maps": 2, "sift_octave_maps": 0, "warp_batched": 1,
+            "slab_probe": 0}
+    check(rc == 0 and launches == want, f"cli rc {rc}, launches {launches}")
+    _record_path(state, "cli", launches)
+    img = imread(out)
+    check(img.shape[1] > 1920 and img.std() > 20, f"cli pano {img.shape}")
+    emit({"phase": "cli", "pano": list(img.shape), "wall_ms": wall,
+          "launches": launches})
+
+
 STAGES = ("detect", "match", "cameras", "bundle_adjust", "warp", "exposure",
           "seam_blend")
 
@@ -1153,6 +1610,7 @@ def phase_kernel_times(state):
                                                     kernel_split_ms)
     stitch, one_level = state.pop("k1_calls")
     chain8 = state.pop("k1_chain_call")
+    batched = state.pop("k1_batched_calls")
     sift = state.pop("k3_call")
     octaves = state.pop("k3_octaves")
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
@@ -1161,6 +1619,9 @@ def phase_kernel_times(state):
     k1["one_level_ms"] = kernel_ms(one_level, N_TIMED, ("detect_maps",),
                                    flush)
     k1["chain8"]["ms"] = kernel_ms(chain8, N_TIMED, ("detect_maps",), flush)
+    for name, call in batched.items():
+        k1["batched"][name]["ms"] = kernel_ms(call, N_TIMED,
+                                              ("detect_maps",), flush)
     k3 = state["k3"]
     cold = kernel_split_ms(sift, N_TIMED, K3_NAMES, flush)
     k3["ms"] = cold["ms"]
@@ -1173,6 +1634,9 @@ def phase_kernel_times(state):
     del flush
     k1["warm_ms"] = kernel_ms(stitch, N_TIMED, ("detect_maps",))
     k1["chain8"]["warm_ms"] = kernel_ms(chain8, N_TIMED, ("detect_maps",))
+    for name, call in batched.items():
+        k1["batched"][name]["warm_ms"] = kernel_ms(call, N_TIMED,
+                                                   ("detect_maps",))
     warm = kernel_split_ms(sift, N_TIMED, K3_NAMES)
     k3["warm_ms"] = warm["ms"]
     k3["warm_ms_by_name"] = warm["by_name"]
@@ -1181,7 +1645,8 @@ def phase_kernel_times(state):
     emit({"phase": "kernel_times",
           "detect_maps": {k: k1[k] for k in ("ms", "warm_ms",
                                               "one_level_ms", "wrapper_ms",
-                                              "bound_ms", "chain8")},
+                                              "bound_ms", "chain8",
+                                              "batched")},
           "sift_octave_maps": {k: k3[k] for k in (
               "ms", "warm_ms", "ms_by_name", "warm_ms_by_name", "octave_ms",
               "octave_warm_ms", "cuda_kernels_traced", "wrapper_ms",
@@ -1189,10 +1654,10 @@ def phase_kernel_times(state):
           "card": state["name"], "smi": state["smi"]})
 
 
-def _stage_breakdown(img1, img2, cfg, n_warm: int):
+def _stage_breakdown(img1, img2, cfg, n_warm: int, trace: bool = True):
     """Wall ms of each stage of one stitch (synchronized between stages,
-    median of `n_warm` runs after a first one), and the device's busy
-    share of one stitch from a torch.profiler trace."""
+    median of `n_warm` runs after a first one), and with `trace` the
+    device's busy share of one stitch from a torch.profiler trace."""
     import numpy as np
     import torch
     from imagestitch_tpu_torch import pipeline as P
@@ -1248,6 +1713,8 @@ def _stage_breakdown(img1, img2, cfg, n_warm: int):
                      for i in range(1, len(marks))})
     runs = runs[1:]
     stages = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+    if not trace:
+        return {"ms": stages, "total_ms": sum(stages.values())}
 
     busy = None
     try:
@@ -1294,6 +1761,10 @@ def main() -> int:
               ("chain_reference", phase_chain_reference),
               ("chain_path", phase_chain_path),
               ("stitcher_path", phase_stitcher_path),
+              ("photo_reference", phase_photo_reference),
+              ("multiband_path", phase_multiband_path),
+              ("stream_path", phase_stream_path),
+              ("batched_path", phase_batched_path), ("cli", phase_cli),
               ("stages", phase_stages), ("kernel_times", phase_kernel_times)]
     for name, fn in phases:
         try:

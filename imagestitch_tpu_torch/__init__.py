@@ -11,7 +11,10 @@ entry points run on the CUDA card unless the caller names another device
 High-level API: `imagestitch_tpu_torch.stitch_pair(img1, img2)` for two
 images, `stitch(images)` (or `Stitcher(config).stitch(images)`) for N
 views of any sizes and layout, `stitch_chain(images)` for N same-size
-views in sequence.
+views in sequence, `stitch_pairs_batched(pairs)` for a batch of pairs,
+`StreamStitcher(config)` to calibrate a fixed rig once and compose every
+frame set after, and `Timelapser` to place frames alone on one canvas.
+The command line: `python -m imagestitch_tpu_torch.cli stitch|demo`.
 """
 
 from imagestitch_tpu_torch.config import (
@@ -25,8 +28,11 @@ from imagestitch_tpu_torch.config import (
     SeamConfig,
     WarpConfig,
 )
+from imagestitch_tpu_torch.parallel.batch import stitch_pairs_batched
 from imagestitch_tpu_torch.pipeline import (Stitcher, stitch, stitch_chain,
                                             stitch_pair)
+from imagestitch_tpu_torch.stream import StreamStitcher
+from imagestitch_tpu_torch.timelapse import Timelapser
 from imagestitch_tpu_torch.types import CameraParams, ImageFeatures, MatchesInfo
 
 __all__ = [
@@ -42,8 +48,11 @@ __all__ = [
     "RansacConfig",
     "SeamConfig",
     "Stitcher",
+    "StreamStitcher",
+    "Timelapser",
     "WarpConfig",
     "stitch",
     "stitch_chain",
     "stitch_pair",
+    "stitch_pairs_batched",
 ]

@@ -47,7 +47,9 @@
 //   takes about 60% of the time.
 // - The per-image parameters are read through pointers to the caller's
 //   device tensors (the corners through their strides, so an expanded
-//   view needs no copy); true sizes travel by value. The launch is the
+//   view needs no copy; the surface scale is one for all images or one
+//   per image, so a batch of stitches with their own scales warps in one
+//   launch); true sizes travel by value. The launch is the
 //   only device work of a warp.
 
 #include <cuda_runtime.h>
@@ -69,8 +71,9 @@ struct Args {
   float* out;              // (N, Hc, Wc, C)
   uint8_t* valid;          // (N, Hc, Wc)
   const float* k_rinv;     // (N, 3, 3) row-major
-  const float* scale_ptr;  // *scale_ptr, or scale_val when null
-  float scale_val;
+  const float* scale_ptr;  // scale_ptr[n * scale_stride], or scale_val
+  float scale_val;         // when scale_ptr is null
+  int scale_stride;        // 0: one scale for all images; 1: one each
   const int* corners;      // corners[n * cs0 + k * cs1]: canvas origin (x, y)
   int cs0, cs1;
   const float* roi;        // (N, 4) u0, v0, u1, v1
@@ -174,7 +177,8 @@ warp_kernel(const Args a, const Sizes sz) {
     return;
   }
 
-  const float scale = a.scale_ptr ? __ldg(a.scale_ptr) : a.scale_val;
+  const float scale = a.scale_ptr ? __ldg(a.scale_ptr + n * a.scale_stride)
+                                  : a.scale_val;
   if (tid < TW) {
     const float us = (static_cast<float>(x0 + tid) + cx) / scale;
     if (KIND == 2) {
@@ -271,23 +275,26 @@ warp_kernel(const Args a, const Sizes sz) {
 // src: (N, H, W, C) float32; out: (N, Hc, Wc, C) float32; valid: (N, Hc,
 // Wc) bool (one byte each), all contiguous on the device. k_rinvs (N, 3, 3)
 // and roi_uvs (N, 4) float32 contiguous on the device; corners int32 on
-// the device at strides (cs0, cs1) elements; scale: *scale_ptr on the
-// device, or scale_val when scale_ptr is null.
+// the device at strides (cs0, cs1) elements; scale: image n's surface
+// scale is scale_ptr[n * scale_stride] on the device (stride 0: one scale
+// for all images, 1: one per image), or scale_val when scale_ptr is null.
 // sizes_hw: host array of N (h, w) pairs (N <= 64), or null for (H, W).
 // kind: 0 cylindrical, 1 spherical, 2 plane. C <= 8 (the row buffers
 // then fit in the 48 KB of shared memory a block gets without opting in).
 extern "C" int imagestitch_warp(const float* src, float* out, uint8_t* valid,
                                 const float* k_rinvs, const float* scale_ptr,
-                                float scale_val,
+                                float scale_val, int scale_stride,
                                 const int* corners, int cs0, int cs1,
                                 const float* roi_uvs, const int* sizes_hw,
                                 int N, int H, int W, int C, int Hc, int Wc,
                                 int kind, cudaStream_t stream) {
   if (C < 1 || C > MAX_C || kind < 0 || kind > 2
+      || scale_stride < 0 || scale_stride > 1
       || (sizes_hw && (N < 1 || N > MAX_SIZES)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{src, out, valid, k_rinvs, scale_ptr, scale_val, corners, cs0,
-               cs1, roi_uvs, H, W, C, Hc, Wc, sizes_hw ? 1 : 0};
+  const Args a{src, out, valid, k_rinvs, scale_ptr, scale_val, scale_stride,
+               corners, cs0, cs1, roi_uvs, H, W, C, Hc, Wc,
+               sizes_hw ? 1 : 0};
   Sizes sz{};
   if (sizes_hw)
     for (int i = 0; i < 2 * N; ++i) sz.hw[i] = sizes_hw[i];

@@ -39,7 +39,7 @@ def _entry():
         fn = load_library().imagestitch_warp
         fn.restype = ctypes.c_int
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, ctypes.c_float, P, I, I, P, P,
+        fn.argtypes = [P, P, P, P, P, ctypes.c_float, I, P, I, I, P, P,
                        I, I, I, I, I, I, I, P]
         _fn = fn
     return _fn
@@ -82,13 +82,18 @@ def _args(imgs, k_rinvs, scale, corners, roi_uvs, canvas_hw, kind,
     roi_uvs = _on(roi_uvs, dev, torch.float32)
     if corners.device != dev or corners.dtype != torch.int32:
         corners = corners.to(device=dev, dtype=torch.int32)
-    if isinstance(scale, torch.Tensor) and scale.is_cuda:
-        if scale.numel() != 1:
-            raise ValueError(f"scale: one value, got {tuple(scale.shape)}")
-        scale = _on(scale, dev, torch.float32)
+    if not isinstance(scale, torch.Tensor) and np.ndim(scale) > 0:
+        scale = torch.as_tensor(np.asarray(scale, np.float32))
+    if isinstance(scale, torch.Tensor) and (scale.is_cuda
+                                            or scale.numel() != 1):
+        if scale.numel() != 1 and tuple(scale.shape) != (N,):
+            raise ValueError(f"scale: one value or (N,) = ({N},), got "
+                             f"{tuple(scale.shape)}")
+        scale = _on(scale.reshape(-1), dev, torch.float32)
         s_ptr, s_val = scale.data_ptr(), 0.0
+        s_stride = 0 if scale.numel() == 1 else 1
     else:
-        s_ptr, s_val = None, float(scale)
+        s_ptr, s_val, s_stride = None, float(scale), 0
     sizes = None
     if src_sizes is not None:
         if N > MAX_SIZED:
@@ -101,7 +106,7 @@ def _args(imgs, k_rinvs, scale, corners, roi_uvs, canvas_hw, kind,
     out = torch.empty((N, Hc, Wc, C), dtype=torch.float32, device=dev)
     valid = torch.empty((N, Hc, Wc), dtype=torch.bool, device=dev)
     args = (imgs.data_ptr(), out.data_ptr(), valid.data_ptr(),
-            k_rinvs.data_ptr(), s_ptr, s_val, corners.data_ptr(),
+            k_rinvs.data_ptr(), s_ptr, s_val, s_stride, corners.data_ptr(),
             corners.stride(0), corners.stride(1), roi_uvs.data_ptr(),
             sizes, N, H, W, C, Hc, Wc, KIND_IDS[kind])
     return args, out, valid, (imgs, k_rinvs, scale, corners, roi_uvs, sizes)
@@ -156,7 +161,9 @@ def warp_batched(imgs: torch.Tensor, k_rinvs: torch.Tensor, scale,
     """Warp (N, H, W[, C]) images into N (Hc, Wc) canvases in one launch.
 
     k_rinvs: (N, 3, 3) K·R⁻¹ backward projections; scale: the surface
-    scale, a number or a one-element tensor; corners: (N, 2) (x, y)
+    scale, one for every image (a number or a one-element tensor) or one
+    per image ((N,): a batch of stitches, each with its own scale);
+    corners: (N, 2) (x, y)
     canvas origins in pano coordinates; roi_uvs: (N, 4) [u0, v0, u1, v1]
     per-image surface ROIs; src_sizes: optional host (N, 2) [h, w] true
     sizes of images padded to a common shape. Returns (out, valid)."""

@@ -149,14 +149,30 @@ def resize(img: torch.Tensor, out_hw: tuple[int, int],
            method: str = "linear") -> torch.Tensor:
     """`jax.image.resize(img, out_hw, "linear")` of (H, W) or (H, W, C)
     float32: antialiased when downsampling, half-pixel centres. The two
-    axis products run in the order XLA's einsum contracts them (the
-    cheaper first: rows when H <= W)."""
+    axis products run in the order XLA's einsum contracts them (the order
+    with fewer multiply-adds: rows first when halving with H <= W, columns
+    first when doubling with H <= W)."""
     if method != "linear":
         raise NotImplementedError(f"resize method {method!r} is not ported")
-    x = img.to(torch.float32)
-    H, W = x.shape[:2]
+    return _resize_hw(img.to(torch.float32), out_hw, 0)
+
+
+def resize_planes(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """`resize` of every (H, W) plane of (P, H, W) float32 at once: the
+    same products in the same order, plane by plane."""
+    return _resize_hw(x.to(torch.float32), out_hw, 1)
+
+
+def _resize_hw(x: torch.Tensor, out_hw: tuple[int, int], ax: int
+               ) -> torch.Tensor:
+    """The two axis products of `resize` over the rows (axis `ax`) and the
+    columns (axis `ax` + 1)."""
+    H, W = x.shape[ax:ax + 2]
     h, w = out_hw
-    axes = [(0, h), (1, w)] if H <= W else [(1, w), (0, h)]
+    # XLA's einsum takes the order with fewer multiply-adds, rows first
+    # on a tie
+    rows_first = H * W * h + h * W * w <= H * W * w + H * w * h
+    axes = [(ax, h), (ax + 1, w)] if rows_first else [(ax + 1, w), (ax, h)]
     for axis, n in axes:
         if x.shape[axis] != n:
             x = _resize_axis(x, n, axis)

@@ -1,0 +1,120 @@
+"""Batched pair stitching on one card (`imagestitch_tpu.parallel.batch.
+stitch_pairs_batched`): the throughput configuration, B independent pairs
+per call (bench.py's 8 pairs at 1080p and 32 at 480x640).
+
+The two kernels run once per batch: the detector maps (K1) once for the
+2B views' pyramids (`features.detect_batched`), and the warp (K2) once for
+the 2B views into 2B canvases, each view with its pair's canvas corner and
+its pair's surface scale. Matching and RANSAC, the cameras and the bundle
+adjustment, gain compensation and the DP seam + blend run pair by pair;
+the bundle adjustment's LM loop reads its stop test back to the host at
+every step, so a batched adjuster is later work.
+
+`stitch_pairs_sharded` (the batch split over a device mesh) is not ported:
+it waits for more than one GPU.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import numpy as np
+import torch
+
+from imagestitch_tpu_torch.config import PipelineConfig
+from imagestitch_tpu_torch.features import detect_batched
+from imagestitch_tpu_torch.matching.matcher import match_pairs
+from imagestitch_tpu_torch.ops.cuda_warp import warp_batched
+from imagestitch_tpu_torch.ops.image import rgb_to_gray
+from imagestitch_tpu_torch.pipeline import (
+    _apply_exposure, _generator, _pano_canvas_shape, _seam_and_blend,
+    check_supported, pair_cameras, pair_metrics, resolve_device,
+    set_full_precision, warp_inputs, warp_scale)
+from imagestitch_tpu_torch.types import index
+
+
+def stitch_pairs_batched(pairs, config: PipelineConfig | None = None,
+                         seed: int = 0, device=None, draws=None):
+    """pairs: (B, 2, H, W, 3) RGB (uint8 or float). Returns, as tensors on
+    the device, (panos (B, Hc, Wc, 3), valids (B, Hc, Wc), corners (B, 2),
+    metrics: each of `stitch_pair_impl`'s metrics stacked over B). The
+    canvases are not cropped.
+
+    seam.orient="auto" resolves to "vertical" (horizontal panorama batches
+    want the vertical seam; pass "horizontal" for stacked pairs). Runs on
+    `device` (default: the CUDA card; with no card it raises). RANSAC
+    draws come from a torch.Generator seeded with `seed`, pair after pair,
+    unless `draws` maps pair b to its (u_first, u_refit)."""
+    cfg = config or PipelineConfig()
+    if cfg.seam.orient == "auto":
+        cfg = cfg.replace(seam=dataclasses.replace(cfg.seam,
+                                                   orient="vertical"))
+    check_supported(cfg)
+    dev = resolve_device(device)
+    set_full_precision()
+    x = torch.as_tensor(np.asarray(pairs) if not isinstance(
+        pairs, torch.Tensor) else pairs, device=dev).to(torch.float32)
+    if x.ndim != 5 or x.shape[1] != 2:
+        raise ValueError(f"pairs: (B, 2, H, W, C) expected, got "
+                         f"{tuple(x.shape)}")
+    return stitch_pairs_batched_impl(x, cfg, draws, _generator(dev, seed))
+
+
+def stitch_pairs_batched_impl(pairs: torch.Tensor, cfg: PipelineConfig,
+                              draws=None,
+                              generator: torch.Generator | None = None,
+                              timer=None):
+    """(B, 2, H, W, 3) float32 pairs on one device -> (panos, valids,
+    corners, metrics), with `cfg` taken as given (no orient resolution).
+    `timer`: an optional `utils.log.StageTimer` that times detect, match,
+    cameras (with the bundle adjustment), warp, exposure and seam_blend."""
+    def stage(name):
+        return timer.stage(name) if timer else contextlib.nullcontext()
+
+    B, _, H, W = pairs.shape[:4]
+    views = pairs.reshape((2 * B,) + tuple(pairs.shape[2:])).contiguous()
+    ids = [(2 * b, 2 * b + 1) for b in range(B)]
+    with stage("detect"):
+        feats = detect_batched(rgb_to_gray(views), cfg.detector)
+    with stage("match"):
+        mis = match_pairs(feats, ids, cfg.matcher, cfg.ransac,
+                          None if draws is None
+                          else {p: draws[b] for b, p in enumerate(ids)},
+                          generator)
+
+    canvas_hw = _pano_canvas_shape((H, W), 2, cfg)
+    fs, cams, scales, inputs = [], [], [], []
+    with stage("cameras"):
+        for b, (i, j) in enumerate(ids):
+            f1, f2 = index(feats, i), index(feats, j)
+            c = pair_cameras(f1, f2, mis[b], ((H, W), (H, W)), cfg)
+            s = warp_scale(c)
+            fs.append((f1, f2))
+            cams.append(c)
+            scales.append(s)
+            inputs.append(warp_inputs(c, s, (H, W), 2, canvas_hw, cfg))
+    with stage("warp"):
+        corners = torch.stack([inp[1] for inp in inputs])
+        warped, masks = warp_batched(
+            views, torch.cat([inp[0] for inp in inputs]),
+            torch.stack(scales).reshape(B).repeat_interleave(2),
+            corners.repeat_interleave(2, dim=0),
+            torch.cat([inp[2] for inp in inputs]), canvas_hw, cfg.warp.kind)
+
+    panos, valids, metrics = [], [], []
+    with stage("exposure"):
+        per_pair = [_apply_exposure(warped[2 * b:2 * b + 2],
+                                    masks[2 * b:2 * b + 2], cfg)
+                    for b in range(B)]
+    with stage("seam_blend"):
+        for b in range(B):
+            pano, valid = _seam_and_blend(per_pair[b],
+                                          masks[2 * b:2 * b + 2], cfg,
+                                          src_w=W, src_h=H)
+            panos.append(pano)
+            valids.append(valid)
+            metrics.append(pair_metrics(*fs[b], mis[b], cams[b],
+                                        inputs[b][3], inputs[b][2]))
+    return (torch.stack(panos), torch.stack(valids), corners,
+            {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]})

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from imagestitch_tpu_torch.blend.feather import feather_blend
+from imagestitch_tpu_torch.blend.multiband import multiband_blend
 from imagestitch_tpu_torch.config import PipelineConfig
 from imagestitch_tpu_torch.exposure.gain import gain_compensate
 from imagestitch_tpu_torch.features import detect as detect_features
@@ -89,7 +90,7 @@ def check_supported(cfg: PipelineConfig, compose: bool = False) -> None:
         todo.append((f"host seam {cfg.seam.kind!r}", 15))
     elif cfg.seam.kind not in ("dp_color", "none"):
         todo.append((f"seam kind {cfg.seam.kind!r}", 13))
-    if cfg.blend.kind not in ("feather", "none"):
+    if cfg.blend.kind not in ("feather", "multiband", "none"):
         todo.append((f"blend kind {cfg.blend.kind!r}", 13))
     if cfg.crop != "bbox":
         todo.append(("crop='interior'", 13))
@@ -165,6 +166,8 @@ def _blend_resolved(images, seam_masks, masks, cfg: PipelineConfig,
     k = cfg.seam.dilate_kernel
     if k > 1 and dilate_seam:
         sm = (dilate(sm.to(torch.float32), (k, k)) > 0.5) & masks
+    if cfg.blend.kind == "multiband":
+        return multiband_blend(images, sm, cfg.blend.num_bands)
     return feather_blend(images, sm, cfg.blend.feather_sharpness)
 
 
@@ -203,13 +206,20 @@ def register_pair(img1: torch.Tensor, img2: torch.Tensor,
     """Stages 1-5 on two (H, W, 3) float32 images: features, matches +
     homography, cameras, bundle adjustment. Returns (f1, f2, mi, cams)."""
     check_supported(cfg)
-    dev = img1.device
     f1 = detect_features(rgb_to_gray(img1), cfg.detector)
     f2 = detect_features(rgb_to_gray(img2), cfg.detector)
     mi = match_pair(f1, f2, 0, 1, cfg.matcher, cfg.ransac, draws=draws,
                     generator=generator)
-    sizes = torch.tensor([list(img1.shape[:2]), list(img2.shape[:2])],
-                         dtype=torch.int32, device=dev)
+    cams = pair_cameras(f1, f2, mi, (img1.shape[:2], img2.shape[:2]), cfg)
+    return f1, f2, mi, cams
+
+
+def pair_cameras(f1, f2, mi, hws, cfg: PipelineConfig) -> CameraParams:
+    """Stages 4-5 of a pair: the two cameras from its homography, then the
+    ray bundle adjustment over its inliers. `hws`: the two images' (h, w)."""
+    dev = mi.H.device
+    sizes = torch.tensor([list(hw) for hw in hws], dtype=torch.int32,
+                         device=dev)
     cams = estimate_cameras(mi.H[None], mi.h_valid[None], sizes)
     if cfg.camera.ba_refine:
         pairs = mi.pairs.long()
@@ -220,7 +230,18 @@ def register_pair(img1: torch.Tensor, img2: torch.Tensor,
             torch.ones(1, dtype=torch.int64, device=dev),
             (mi.confidence > cfg.camera.ba_conf_thresh)[None],
             cfg.camera.ba_iters, cfg.camera.ba_kind)
-    return f1, f2, mi, cams
+    return cams
+
+
+def pair_metrics(f1, f2, mi, cams: CameraParams, overflow, roi_uvs) -> dict:
+    """The metrics of one stitched pair, as tensors."""
+    return {
+        "kpts1": f1.num_valid(), "kpts2": f2.num_valid(),
+        "num_matches": mi.num_matches(), "num_inliers": mi.num_inliers,
+        "confidence": mi.confidence, "focal": cams.focal[0],
+        "h_valid": mi.h_valid, "canvas_overflow": overflow,
+        "roi_uv": roi_uvs,
+    }
 
 
 def warp_scale(cams: CameraParams) -> torch.Tensor:
@@ -259,15 +280,8 @@ def stitch_pair_front_impl(img1: torch.Tensor, img2: torch.Tensor,
     warped, masks, corner, overflow, roi_uvs = _warp_all_shared(
         imgs, cams, scale, canvas_hw, cfg, src_sizes=src_sizes)
     warped = _apply_exposure(warped, masks, cfg)
-
-    metrics = {
-        "kpts1": f1.num_valid(), "kpts2": f2.num_valid(),
-        "num_matches": mi.num_matches(), "num_inliers": mi.num_inliers,
-        "confidence": mi.confidence, "focal": cams.focal[0],
-        "h_valid": mi.h_valid, "canvas_overflow": overflow,
-        "roi_uv": roi_uvs,
-    }
-    return warped, masks, corner, metrics
+    return warped, masks, corner, pair_metrics(f1, f2, mi, cams, overflow,
+                                               roi_uvs)
 
 
 def stitch_pair_impl(img1: torch.Tensor, img2: torch.Tensor,
@@ -479,6 +493,67 @@ class _StageDumper:
                                 **{k: _np(v) for k, v in arrays.items()})
 
 
+def register_views(imgs: torch.Tensor, cfg: PipelineConfig,
+                   timer: StageTimer, draws=None,
+                   generator: torch.Generator | None = None,
+                   src_sizes: np.ndarray | None = None, dump=None):
+    """Stages 1-5 of the N-view stitchers (`Stitcher`,
+    `StreamStitcher`) on (N, H, W, 3) float32 images on one device, each
+    step a stage of `timer`: one batched detect (with `src_sizes`, the
+    host (N, 2) true sizes of edge-padded views, keypoints whose patch
+    would reach past a view's true border are dropped, the border growing
+    by scale_factor per pyramid level); `match_all`; rotations chained
+    along the maximum spanning tree of the confident pairs (host); the ray
+    bundle adjustment over the matched pairs. `draws`: optional mapping
+    (i, j) -> (u_first, u_refit) RANSAC draws per pair. `dump` (a
+    `_StageDumper`) writes features.npz, matches.npz and cameras.npz.
+    Returns (cams, tree_edges, reachable (N,) bool, pair confidences),
+    the last two host arrays."""
+    cfg_d = cfg.detector
+    dev = imgs.device
+    n, H, W = imgs.shape[:3]
+    dump = dump or _StageDumper(None)
+    work_sizes = (src_sizes if src_sizes is not None
+                  else np.asarray([[H, W]] * n, np.int32))
+    with timer.stage("detect"):
+        feats = detect_batched(rgb_to_gray(imgs), cfg_d)
+        if src_sizes is not None:
+            b = cfg_d.edge_threshold * torch.pow(
+                torch.tensor(cfg_d.scale_factor, dtype=torch.float32,
+                             device=dev), feats.level.to(torch.float32))
+            sw = torch.as_tensor(work_sizes, dtype=torch.float32,
+                                 device=dev)
+            x, y = feats.xy[..., 0], feats.xy[..., 1]
+            inb = ((x >= b) & (x <= sw[:, None, 1] - 1.0 - b)
+                   & (y >= b) & (y <= sw[:, None, 0] - 1.0 - b))
+            feats = feats.replace(valid=feats.valid & inb)
+    dump("features", xy=feats.xy, valid=feats.valid,
+         response=feats.response, level=feats.level)
+
+    with timer.stage("match"):
+        pairs = pair_list(n, cfg.matcher.range_width)
+        ms = match_all(feats, cfg.matcher, cfg.ransac, draws, generator)
+    dump("matches", H=ms.H, num_inliers=ms.num_inliers,
+         confidence=ms.confidence, h_valid=ms.h_valid,
+         src_idx=ms.src_idx, dst_idx=ms.dst_idx)
+
+    with timer.stage("cameras"):
+        conf = _np(ms.confidence)
+        keep = conf > cfg.matcher.conf_thresh
+        cams, tree_edges, reachable = estimate_cameras_host(
+            _np(ms.H), _np(ms.src_idx), _np(ms.dst_idx),
+            _np(ms.num_inliers), _np(ms.h_valid) & keep, work_sizes,
+            return_tree=True, device=dev)
+
+    if cfg.camera.ba_refine:
+        with timer.stage("bundle_adjust"):
+            cams = _adjust(cams, feats, ms, pairs,
+                           torch.as_tensor(keep, device=dev) & ms.h_valid,
+                           cfg)
+    dump("cameras", focal=cams.focal, R=cams.R, ppx=cams.ppx, ppy=cams.ppy)
+    return cams, tree_edges, np.asarray(reachable), conf
+
+
 class Stitcher:
     """N-image panorama stitcher with per-stage timers: all-pairs matching
     (or within cfg.matcher.range_width), confidence filtering, rotations
@@ -526,49 +601,9 @@ class Stitcher:
                          mode="edge") for im, (h, w) in zip(images, shapes)]
         imgs = torch.as_tensor(np.stack(images), device=dev).to(
             torch.float32)
-        work_sizes = (full_sizes if full_sizes is not None
-                      else np.asarray([[H, W]] * n, np.int32))
 
-        with timer.stage("detect"):
-            feats = detect_batched(rgb_to_gray(imgs), cfg.detector)
-            if full_sizes is not None:
-                # keypoints whose patch would reach past the true border,
-                # the border growing by scale_factor per pyramid level
-                b = cfg.detector.edge_threshold * torch.pow(
-                    torch.tensor(cfg.detector.scale_factor,
-                                 dtype=torch.float32, device=dev),
-                    feats.level.to(torch.float32))
-                sw = torch.as_tensor(work_sizes, dtype=torch.float32,
-                                     device=dev)
-                x, y = feats.xy[..., 0], feats.xy[..., 1]
-                inb = ((x >= b) & (x <= sw[:, None, 1] - 1.0 - b)
-                       & (y >= b) & (y <= sw[:, None, 0] - 1.0 - b))
-                feats = feats.replace(valid=feats.valid & inb)
-        dump("features", xy=feats.xy, valid=feats.valid,
-             response=feats.response, level=feats.level)
-
-        with timer.stage("match"):
-            pairs = pair_list(n, cfg.matcher.range_width)
-            ms = match_all(feats, cfg.matcher, cfg.ransac, draws, gen)
-        dump("matches", H=ms.H, num_inliers=ms.num_inliers,
-             confidence=ms.confidence, h_valid=ms.h_valid,
-             src_idx=ms.src_idx, dst_idx=ms.dst_idx)
-
-        with timer.stage("cameras"):
-            conf = _np(ms.confidence)
-            keep = conf > cfg.matcher.conf_thresh
-            cams, tree_edges, reachable = estimate_cameras_host(
-                _np(ms.H), _np(ms.src_idx), _np(ms.dst_idx),
-                _np(ms.num_inliers), _np(ms.h_valid) & keep, work_sizes,
-                return_tree=True, device=dev)
-
-        if cfg.camera.ba_refine:
-            with timer.stage("bundle_adjust"):
-                cams = _adjust(cams, feats, ms, pairs,
-                               torch.as_tensor(keep, device=dev)
-                               & ms.h_valid, cfg)
-        dump("cameras", focal=cams.focal, R=cams.R, ppx=cams.ppx,
-             ppy=cams.ppy)
+        cams, tree_edges, reachable, conf = register_views(
+            imgs, cfg, timer, draws, gen, full_sizes, dump)
 
         with timer.stage("warp"):
             scale = warp_scale(cams)
@@ -593,7 +628,7 @@ class Stitcher:
             "focal": float(cams.focal[0]),
             "pair_confidences": conf.tolist(),
             "canvas_overflow": bool(overflow),
-            "reachable": np.asarray(reachable).tolist(),
+            "reachable": reachable.tolist(),
         }
         metrics.update(timer.summary())
         return np.clip(pano, 0, 255).astype(np.uint8), metrics

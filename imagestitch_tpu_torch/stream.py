@@ -1,0 +1,130 @@
+"""Video stitcher for a fixed rig: calibrate once, compose every frame
+(`imagestitch_tpu.stream.StreamStitcher`).
+
+- `calibrate(images)` runs the N-view registration of the `Stitcher`
+  (`pipeline.register_views`: one batched detect, all pairs matched,
+  rotations along the spanning tree, bundle adjustment) on one frame set,
+  warps it (one warp launch), drops the views outside the tree's largest
+  component from the masks, applies gain compensation, resolves DP seams
+  along i -> i+1 (not along the tree, as the JAX package's stream does)
+  and freezes the seam masks, the cameras and the warp's inputs.
+- `compose(images)` warps a new frame set with the frozen registration
+  (one warp launch, no detection), applies gain compensation and blends
+  with the frozen seam masks, then crops on the host.
+
+Runs on `device` (default: the CUDA card; with no card it raises).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from imagestitch_tpu_torch.config import PipelineConfig
+from imagestitch_tpu_torch.ops.cuda_warp import warp_batched
+from imagestitch_tpu_torch.pipeline import (
+    _apply_exposure, _blend_resolved, _crop_valid, _generator,
+    _pano_canvas_shape, check_supported, register_views, resolve_device,
+    set_full_precision, warp_inputs, warp_scale)
+from imagestitch_tpu_torch.seam.dp import dp_seam_pair
+from imagestitch_tpu_torch.utils.log import StageTimer
+
+
+class StreamStitcher:
+    """Fixed-rig video stitcher: `calibrate` once, `compose` per frame set.
+    `stages_ms` holds the wall ms per stage of the last call."""
+
+    def __init__(self, config: PipelineConfig | None = None, device=None):
+        self.cfg = config or PipelineConfig()
+        check_supported(self.cfg)
+        self.device = resolve_device(device)
+        self._frozen = None
+        self.stages_ms: dict[str, float] = {}
+
+    def _upload(self, images) -> torch.Tensor:
+        return torch.as_tensor(np.stack([np.asarray(im) for im in images]),
+                               device=self.device).to(torch.float32)
+
+    def _warp(self, imgs: torch.Tensor):
+        f = self._frozen
+        return warp_batched(imgs.contiguous(), f["k_rinvs"], f["scale"],
+                            f["corners"], f["roi_uvs"], f["canvas_hw"],
+                            self.cfg.warp.kind)
+
+    def calibrate(self, images, seed: int = 0, draws=None):
+        """Register one frame set of N same-size (H, W, 3) uint8 views and
+        freeze the registration. `draws`: optional mapping (i, j) ->
+        (u_first, u_refit) RANSAC draws per matched pair. Returns the
+        calibration pano (uint8) and metrics."""
+        cfg = self.cfg
+        dev = self.device
+        set_full_precision()
+        timer = StageTimer(dev)
+        imgs = self._upload(images)
+        n, H, W = imgs.shape[:3]
+        cams, _, reachable, conf = register_views(
+            imgs, cfg, timer, draws, _generator(dev, seed))
+
+        with timer.stage("warp"):
+            scale = warp_scale(cams)
+            canvas_hw = _pano_canvas_shape((H, W), n, cfg)
+            k_rinvs, corner, roi_uvs, _ = warp_inputs(
+                cams, scale, (H, W), n, canvas_hw, cfg)
+            self._frozen = dict(cams=cams, k_rinvs=k_rinvs, scale=scale,
+                                corners=corner.expand(n, 2),
+                                roi_uvs=roi_uvs, canvas_hw=canvas_hw)
+            warped, masks = self._warp(imgs)
+            # the views outside the largest match component sit at R = I:
+            # the frozen seam masks leave them out of every compose too
+            masks = masks & torch.as_tensor(reachable, device=dev)[
+                :, None, None]
+        with timer.stage("exposure"):
+            warped = _apply_exposure(warped, masks, cfg)
+        with timer.stage("seam"):
+            sm = [masks[i] for i in range(n)]
+            if cfg.seam.kind != "none":
+                for i in range(n - 1):
+                    sm[i], sm[i + 1], _ = dp_seam_pair(
+                        warped[i], warped[i + 1], sm[i], sm[i + 1], False,
+                        orient=cfg.seam.orient, scale=cfg.seam.dp_scale)
+            self._frozen["seam_masks"] = torch.stack(sm)
+        with timer.stage("blend"):
+            pano, valid = _blend_resolved(warped, self._frozen["seam_masks"],
+                                          masks, cfg)
+        with timer.stage("readback_crop"):
+            pano, _ = _crop_valid(pano.cpu().numpy(), valid.cpu().numpy())
+        self.stages_ms = timer.summary()
+        metrics = {"n_images": n, "pair_confidences": conf.tolist(),
+                   "focal": float(cams.focal[0]),
+                   "reachable": reachable.tolist()}
+        return np.clip(pano, 0, 255).astype(np.uint8), metrics
+
+    def frozen(self, name: str):
+        """A frozen piece of the registration: "cams" (CameraParams),
+        "scale", "seam_masks" ((N, Hc, Wc) bool), "canvas_hw", or the warp's
+        "k_rinvs", "corners", "roi_uvs"."""
+        if self._frozen is None:
+            raise RuntimeError("call calibrate() first")
+        return self._frozen[name]
+
+    def compose(self, images) -> np.ndarray:
+        """Stitch a new frame set of the rig with the frozen registration:
+        warp, gain compensation, blend with the frozen seam masks, crop.
+        Returns the pano (uint8)."""
+        if self._frozen is None:
+            raise RuntimeError("call calibrate() before compose()")
+        cfg = self.cfg
+        timer = StageTimer(self.device)
+        with timer.stage("upload"):
+            imgs = self._upload(images)
+        with timer.stage("warp"):
+            warped, masks = self._warp(imgs)
+        with timer.stage("exposure"):
+            warped = _apply_exposure(warped, masks, cfg)
+        with timer.stage("blend"):
+            pano, valid = _blend_resolved(warped, self._frozen["seam_masks"],
+                                          masks, cfg)
+        with timer.stage("readback_crop"):
+            pano, _ = _crop_valid(pano.cpu().numpy(), valid.cpu().numpy())
+        self.stages_ms = timer.summary()
+        return np.clip(pano, 0, 255).astype(np.uint8)

@@ -8,19 +8,22 @@ import math
 
 import torch
 
+from imagestitch_tpu_torch.warp.warper import image_scale
+
 
 def near_validity_boundary(k_rinvs: torch.Tensor, scale, corners,
                            canvas_hw: tuple[int, int], kind: str, sizes,
                            tol: float = 1e-3) -> torch.Tensor:
     """(N, Hc, Wc) bool: canvas pixels whose float64 source coordinate lies
     within `tol` px of the in-image boundary of its (h, w) in `sizes`, or
-    whose ray is near z = 0. float32 rounding may put these on either side
+    whose ray is near z = 0; `scale` is one surface scale for every image
+    or (N,) one each. float32 rounding may put these on either side
     of the validity test, so two warps' masks may differ there."""
     Hc, Wc = canvas_hw
     dev = k_rinvs.device
-    s = float(scale)
     out = []
     for i in range(k_rinvs.shape[0]):
+        s = float(image_scale(scale, i))
         M = k_rinvs[i].double()
         cx, cy = (float(c) for c in corners[i])
         u = (torch.arange(Wc, dtype=torch.float64, device=dev)

@@ -1,14 +1,73 @@
-"""Synthetic test scenes with known geometry (host NumPy).
+"""Host image I/O, the real-photo fixtures and synthetic test scenes with
+known geometry (host NumPy and PIL).
 
-The same generators as `imagestitch_tpu.utils.io` (`synthetic_pair`,
-`synthetic_rotation_pair`, and the N-view `synthetic_sequence` and
-`synthetic_grid`), kept as this package's own copy so that it imports
-nothing of the JAX package; same seeds give the same pixels.
+The same functions as `imagestitch_tpu.utils.io`: `imread` / `imwrite`;
+`load_photo`, `photo_rotation_pair` and `photo_translation_pair` on the
+vendored real photograph (this package's own copy in `utils/data/`,
+CC-BY 2.0, see `data/ATTRIBUTION.txt`); the generators `synthetic_pair`,
+`synthetic_rotation_pair`, `synthetic_affine_pair` and the N-view
+`synthetic_sequence` and `synthetic_grid`. Kept as this package's own
+copy so that it imports nothing of the JAX package; the same seeds give
+the same pixels. `synthetic_pan_sequence` (a panning camera's views) is
+this package's own.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+
+
+def imread(path: str) -> np.ndarray:
+    """Read an image file to (H, W, 3) uint8 RGB."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    """Write (H, W[, 3]) uint8 (or float in [0, 255], clipped) to an image
+    file; the format follows the file's extension."""
+    from PIL import Image
+
+    arr = np.asarray(img)
+    if arr.dtype != np.uint8:
+        arr = np.clip(arr, 0, 255).astype(np.uint8)
+    Image.fromarray(arr).save(path)
+
+
+def load_photo() -> np.ndarray:
+    """The vendored real photograph, (427, 640, 3) uint8 RGB: a temple with
+    real sensor noise, foliage texture and exposure falloff."""
+    return imread(os.path.join(DATA_DIR, "china.jpg"))
+
+
+def photo_rotation_pair(yaw_deg: float = 7.0, pitch_deg: float = 0.7,
+                        roll_deg: float = 1.0):
+    """Two rotating-camera 360x420 views of the real photograph, focal
+    0.9 x width. Returns (img1, img2, H_true, focal)."""
+    scene = load_photo().astype(np.float32)
+    height, width = 360, 420
+    return rotation_views_of_scene(scene, height, width, 0.9 * width,
+                                   yaw_deg, pitch_deg, roll_deg)
+
+
+def photo_translation_pair(overlap: float = 0.5):
+    """Two overlapping crops of the real photograph at its native height
+    (a sideways-tracking camera): the overlap pixels are the same sensor
+    data in both. Returns (img1, img2, shift_px), img2 being img1 shifted
+    left by shift_px."""
+    scene = load_photo()
+    height, width = scene.shape[:2]
+    w = int(width / (2.0 - overlap))
+    shift = width - w
+    img1 = np.ascontiguousarray(scene[:, :w])
+    img2 = np.ascontiguousarray(scene[:, shift:shift + w])
+    return img1, img2, shift
 
 
 def _render_scene(height: int, width: int, seed: int) -> np.ndarray:
@@ -56,6 +115,61 @@ def synthetic_sequence(n: int, height: int = 480, width: int = 640,
     views = [np.ascontiguousarray(scene[:, i * shift:i * shift + width])
              for i in range(n)]
     return views, shift
+
+
+def synthetic_pan_sequence(n: int, height: int = 160, width: int = 224,
+                           step_deg: float = 10.0, seed: int = 7):
+    """N views of one planar scene from a camera panning `step_deg` a view
+    about its centre, focal 0.9 x width: the N-view counterpart of
+    `synthetic_rotation_pair`, where the focal is well determined."""
+    f = 0.9 * width
+    half = np.deg2rad(step_deg * (n - 1) / 2)
+    sh = height + height // 3
+    sw = width + int(np.ceil(2 * f * np.tan(half) + 0.25 * width))
+    scene = _render_scene(sh, sw, seed).astype(np.float32)
+    K = np.array([[f, 0, (width - 1) / 2], [0, f, (height - 1) / 2],
+                  [0, 0, 1.0]])
+    Ks = np.array([[f, 0, (sw - 1) / 2], [0, f, (sh - 1) / 2], [0, 0, 1.0]])
+    ys, xs = np.mgrid[0:height, 0:width].astype(np.float64)
+    views = []
+    for i in range(n):
+        R = _rot_ypr(np.deg2rad(step_deg * (i - (n - 1) / 2)), 0.0, 0.0)
+        M = Ks @ R.T @ np.linalg.inv(K)
+        px = M[0, 0] * xs + M[0, 1] * ys + M[0, 2]
+        py = M[1, 0] * xs + M[1, 1] * ys + M[1, 2]
+        pz = M[2, 0] * xs + M[2, 1] * ys + M[2, 2]
+        views.append(np.clip(_bilinear_sample(scene, px / pz, py / pz),
+                             0, 255).astype(np.uint8))
+    return views
+
+
+def synthetic_affine_pair(height: int = 480, width: int = 640,
+                          angle_deg: float = 6.0, scale: float = 1.05,
+                          tx: float | None = None, ty: float = 10.0,
+                          seed: int = 7):
+    """Two views of one planar scene related by a similarity transform (a
+    flatbed or drone scan: in-plane rotation, scale and translation, no
+    perspective). Returns (img1, img2, A_true (2, 3) float64) with
+    pixel_view2 = A_true · [pixel_view1, 1]."""
+    if tx is None:
+        tx = 0.45 * width
+    th = np.deg2rad(angle_deg)
+    # M maps view-2 pixels to scene pixels (the scene extends view 1)
+    c, s = np.cos(th), np.sin(th)
+    M = np.array([[scale * c, -scale * s, tx],
+                  [scale * s, scale * c, ty],
+                  [0.0, 0.0, 1.0]])
+    corners = np.array([[0, 0, 1], [width, 0, 1], [0, height, 1],
+                        [width, height, 1]], np.float64) @ M.T
+    sw = int(np.ceil(max(width, corners[:, 0].max()))) + 2
+    sh = int(np.ceil(max(height, corners[:, 1].max()))) + 2
+    scene = _render_scene(sh, sw, seed).astype(np.float32)
+    img1 = np.clip(scene[:height, :width], 0, 255).astype(np.uint8)
+    ys, xs = np.mgrid[0:height, 0:width].astype(np.float64)
+    px = M[0, 0] * xs + M[0, 1] * ys + M[0, 2]
+    py = M[1, 0] * xs + M[1, 1] * ys + M[1, 2]
+    img2 = np.clip(_bilinear_sample(scene, px, py), 0, 255).astype(np.uint8)
+    return img1, img2, np.linalg.inv(M)[:2]
 
 
 def synthetic_grid(rows: int, cols: int, height: int = 480, width: int = 640,

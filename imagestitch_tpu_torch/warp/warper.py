@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from imagestitch_tpu_torch.ops.image import remap_bilinear
@@ -50,14 +51,24 @@ def roi_bounds(K: torch.Tensor, R: torch.Tensor, scale,
     return _roi_bounds(PROJECTORS[kind](K, R, scale), src_hw[0], src_hw[1])
 
 
+def image_scale(scale, i: int):
+    """Image i's surface scale, where `scale` is one value for every image
+    or one per image."""
+    if isinstance(scale, torch.Tensor):
+        return scale.reshape(-1)[i] if scale.numel() > 1 else scale
+    return np.asarray(scale).reshape(-1)[i] if np.ndim(scale) > 0 else scale
+
+
 def warp_batched_plain(imgs: torch.Tensor, k_rinvs: torch.Tensor, scale,
                        corners: torch.Tensor, roi_uvs: torch.Tensor,
                        canvas_hw: tuple[int, int], kind: str = "cylindrical",
                        src_sizes=None):
     """Warp (N, H, W, C) images into N (Hc, Wc) canvases: per canvas pixel
-    (u, v) = pixel + corner, the backward map, the ROI-rectangle test
-    (±1 px), the in-image test on each image's true size and a clamped
-    bilinear sample. Returns (out (N, Hc, Wc, C), valid (N, Hc, Wc) bool)."""
+    (u, v) = pixel + corner, the backward map at the image's surface scale
+    (`scale`: one for every image, or (N,) one each), the ROI-rectangle
+    test (±1 px), the in-image test on each image's true size and a
+    clamped bilinear sample. Returns (out (N, Hc, Wc, C), valid (N, Hc, Wc)
+    bool)."""
     N, H, W = imgs.shape[:3]
     Hc, Wc = canvas_hw
     dev = imgs.device
@@ -65,7 +76,8 @@ def warp_batched_plain(imgs: torch.Tensor, k_rinvs: torch.Tensor, scale,
     for i in range(N):
         h, w = ((H, W) if src_sizes is None
                 else (int(src_sizes[i][0]), int(src_sizes[i][1])))
-        proj = PROJECTORS[kind].from_backward(k_rinvs[i], scale)
+        proj = PROJECTORS[kind].from_backward(k_rinvs[i],
+                                              image_scale(scale, i))
         corner = corners[i].to(torch.float32)
         dx = torch.arange(Wc, dtype=torch.float32, device=dev)[None, :] \
             + corner[0]

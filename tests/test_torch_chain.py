@@ -91,26 +91,8 @@ TOL = {"strict": (1e-3, 0.5, 0.999, 40.0),
 def pan_sequence(n, height=160, width=224, step_deg=10.0, seed=7):
     """N views of one planar scene from a camera panning `step_deg` a view
     about its centre, focal 0.9 x width (the N-view counterpart of
-    synthetic_rotation_pair)."""
-    f = 0.9 * width
-    half = np.deg2rad(step_deg * (n - 1) / 2)
-    sh = height + height // 3
-    sw = width + int(np.ceil(2 * f * np.tan(half) + 0.25 * width))
-    scene = tio._render_scene(sh, sw, seed).astype(np.float32)
-    K = np.array([[f, 0, (width - 1) / 2], [0, f, (height - 1) / 2],
-                  [0, 0, 1.0]])
-    Ks = np.array([[f, 0, (sw - 1) / 2], [0, f, (sh - 1) / 2], [0, 0, 1.0]])
-    ys, xs = np.mgrid[0:height, 0:width].astype(np.float64)
-    views = []
-    for i in range(n):
-        R = tio._rot_ypr(np.deg2rad(step_deg * (i - (n - 1) / 2)), 0.0, 0.0)
-        M = Ks @ R.T @ np.linalg.inv(K)
-        px = M[0, 0] * xs + M[0, 1] * ys + M[0, 2]
-        py = M[1, 0] * xs + M[1, 1] * ys + M[1, 2]
-        pz = M[2, 0] * xs + M[2, 1] * ys + M[2, 2]
-        views.append(np.clip(tio._bilinear_sample(scene, px / pz, py / pz),
-                             0, 255).astype(np.uint8))
-    return views
+    synthetic_rotation_pair): the port's `synthetic_pan_sequence`."""
+    return tio.synthetic_pan_sequence(n, height, width, step_deg, seed)
 
 
 def _views(case):

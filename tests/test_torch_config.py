@@ -75,14 +75,15 @@ def test_unported_kinds_raise_with_roadmap_item():
     from imagestitch_tpu_torch.pipeline import check_supported
     for cfg, item in [
             (tcfg.PipelineConfig(seam=tcfg.SeamConfig(kind="graphcut")), 15),
-            (tcfg.PipelineConfig(blend=tcfg.BlendConfig(kind="multiband")),
-             13),
+            (tcfg.PipelineConfig(blend=tcfg.BlendConfig(kind="ramp")), 13),
             (tcfg.PipelineConfig(mode="scans"), 16)]:
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             check_supported(cfg)
     check_supported(tcfg.PipelineConfig())
     check_supported(tcfg.PipelineConfig(
         detector=tcfg.DetectorConfig(kind="sift")))
+    check_supported(tcfg.PipelineConfig(
+        blend=tcfg.BlendConfig(kind="multiband")))
 
 
 def _python_files():

@@ -524,3 +524,119 @@ def test_n_view_entry_on_card_matches_cpu_and_counts_launches(cuda, entry):
     assert abs(mc["focal"] - mp["focal"]) <= 1e-3 * mp["focal"]
     assert pc.shape == pp.shape
     assert np.abs(pc.astype(float) - pp.astype(float)).mean() < 1.0
+
+
+def _batched_warp_args(dev, pairs, h, w, focal):
+    """`pairs` pairs of seeded (h, w, 3) views, each pair under its own
+    focal (so its own surface scale, its pair's median focal) and yaw
+    spread (so its own canvas corner), into the pipeline's two-view
+    canvas: one (2·pairs, ...) batch, scale (2·pairs,) one per view."""
+    cfg = PipelineConfig()
+    canvas = _pano_canvas_shape((h, w), 2, cfg)
+    parts = [_yaw_warp_args(dev, 2, h, w, 3, canvas=canvas,
+                            focal=focal * (1.0 + 0.02 * b),
+                            spread=0.08 + 0.004 * b) for b in range(pairs)]
+    scale = torch.stack([p[2] for p in parts]).repeat_interleave(2)
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]), scale,
+            torch.cat([p[3] for p in parts]),
+            torch.cat([p[4] for p in parts]), canvas, "cylindrical")
+
+
+@pytest.mark.parametrize("case", [dict(pairs=8, h=1080, w=1920, focal=1728.0),
+                                  dict(pairs=32, h=480, w=640, focal=576.0)],
+                         ids=["pairs8_1080p", "pairs32_vga"])
+def test_warp_kernel_per_image_scale_matches_plain(cuda, case):
+    """K2 with one surface scale per view, at the batched shapes of
+    stitch_pairs_batched (16 views into 1458x4032 canvases, 64 into
+    648x1344), each pair with its own scale and corner: one launch; masks
+    equal except within 1e-3 px of the validity boundary; values equal
+    (max error 0) where both are valid; zeros where the kernel's mask is
+    false."""
+    imgs, kr, scale, corners, roi, canvas, kind = _batched_warp_args(
+        cuda, **case)
+    assert torch.unique(scale).numel() == case["pairs"]
+    n0 = cuda_warp.launch_count
+    ok, vk = cuda_warp.warp_batched_cuda(imgs, kr, scale, corners, roi,
+                                         canvas, kind)
+    assert cuda_warp.launch_count == n0 + 1
+    op, vp = warp_batched_plain(imgs, kr, scale, corners, roi, canvas, kind)
+    n, h, w = imgs.shape[:3]
+    near = near_validity_boundary(kr, scale, corners, canvas, kind,
+                                  [(h, w)] * n)
+    assert int(((vk != vp) & ~near).sum()) == 0
+    both = vk & vp
+    assert bool(both.any())
+    assert float((ok - op).abs()[both].max()) == 0.0
+    assert float(ok.abs().masked_select(~vk[..., None]).max()) == 0.0
+
+
+def test_warp_kernel_one_scale_bit_for_bit(cuda):
+    """One scale given per view, as a number or as a one-element tensor:
+    the same outputs, bit for bit; a scale of another length raises."""
+    imgs, kr, scale, corners, roi, canvas, kind = _yaw_warp_args(
+        cuda, 3, 60, 80, 3)
+    ref = cuda_warp.warp_batched_cuda(imgs, kr, scale, corners, roi, canvas,
+                                      kind)
+    for s in (scale.expand(3).contiguous(), float(scale),
+              scale.reshape(1).cpu(), scale.expand(3).cpu()):
+        out = cuda_warp.warp_batched_cuda(imgs, kr, s, corners, roi, canvas,
+                                          kind)
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    with pytest.raises(ValueError):
+        cuda_warp.warp_batched_cuda(imgs, kr, scale.expand(2).contiguous(),
+                                    corners, roi, canvas, kind)
+
+
+def test_batched_pairs_on_card_match_cpu_and_count_launches(cuda):
+    """stitch_pairs_batched on two 192x256 pairs on the card and on the CPU
+    with the same draws: one detector-maps launch and one warp launch for
+    the batch; equal inliers and corners, focal within 1e-3, each canvas
+    within 1 intensity on average."""
+    from imagestitch_tpu_torch import stitch_pairs_batched
+    from imagestitch_tpu_torch.utils.io import synthetic_pair
+    pairs = np.stack([np.stack(synthetic_pair(192, 256, overlap=0.4 + 0.1 * b,
+                                              seed=3 + b)[:2])
+                      for b in range(2)])
+    g = torch.Generator().manual_seed(4)
+    draws = {b: (torch.rand((2048, 4), generator=g),
+                 torch.rand((256, 4), generator=g)) for b in range(2)}
+    c0 = _counts()
+    pc, vc, cc, mc = stitch_pairs_batched(pairs, device=cuda, draws=draws)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(c0, _counts())) == (1, 0, 1)
+    pp, vp, cp, mp = stitch_pairs_batched(pairs, device="cpu", draws=draws)
+    assert torch.equal(cc.cpu(), cp)
+    assert torch.equal(mc["num_inliers"].cpu(), mp["num_inliers"])
+    assert bool(mc["h_valid"].all())
+    assert torch.allclose(mc["focal"].cpu(), mp["focal"], rtol=1e-3)
+    assert float((pc.cpu() - pp).abs().mean()) < 1.0
+
+
+def test_stream_on_card_matches_cpu_and_counts_launches(cuda):
+    """StreamStitcher with the default configuration (bundle adjustment on)
+    on a panning camera's four 160x224 views, on the card and on the CPU
+    with the same draws: calibrate launches the detector maps once and the
+    warp once, compose the warp once and no detection; equal reachable,
+    focal within 1e-3, panos within 1 intensity on average."""
+    from imagestitch_tpu_torch import StreamStitcher
+    from imagestitch_tpu_torch.matching.matcher import pair_list
+    from imagestitch_tpu_torch.utils.io import synthetic_pan_sequence
+    views = synthetic_pan_sequence(4)
+    g = torch.Generator().manual_seed(5)
+    draws = {p: (torch.rand((2048, 4), generator=g),
+                 torch.rand((256, 4), generator=g)) for p in pair_list(4)}
+    card = StreamStitcher(device=cuda)
+    c0 = _counts()
+    pc, mc = card.calibrate(views, draws=draws)
+    c1 = _counts()
+    assert tuple(b - a for a, b in zip(c0, c1)) == (1, 0, 1)
+    composed = card.compose(views)
+    assert tuple(b - a for a, b in zip(c1, _counts())) == (0, 0, 1)
+    cpu = StreamStitcher(device="cpu")
+    pp, mp = cpu.calibrate(views, draws=draws)
+    assert mc["reachable"] == mp["reachable"] == [True] * 4
+    assert abs(mc["focal"] - mp["focal"]) <= 1e-3 * mp["focal"]
+    assert pc.shape == pp.shape == composed.shape
+    assert np.abs(pc.astype(float) - pp.astype(float)).mean() < 1.0
+    assert np.abs(pc.astype(float) - composed.astype(float)).mean() < 1.0

@@ -25,6 +25,14 @@ plain versions), with the JAX RANSAC draws injected per pair.
   some pyramid levels, which can swap near-tied keypoints), focal within
   1e-3 relative and the cropped pano's height and width within 2%. The
   panos extend as the JAX package's own tests ask.
+- The JAX package's topology cases: a panning camera's 4 views in a
+  shuffled order (the seams follow the spanning tree, edges with u > v),
+  a 4-view sequence whose last view is noise (left out of the canvas,
+  reachable [T, T, T, F]) and three unrelated scenes (every pair flagged
+  under the confidence threshold): the same metric keys, seam edges,
+  reachable and confident pairs, confidences within 0.05, focal within
+  1e-3 (2e-2 on the noise case's near-pure translation) and the pano's
+  shape within 2%.
 - `dump_stages` writes the JAX package's .npz names with the same arrays'
   shapes; configurations not ported raise NotImplementedError naming their
   ROADMAP item; the entry points raise without a card by default.
@@ -60,7 +68,7 @@ from imagestitch_tpu_torch.matching.matcher import (match_all,  # noqa: E402
                                                     pair_list)
 from imagestitch_tpu_torch.types import stack  # noqa: E402
 
-from test_torch_chain import CHAIN_CFG, pair_draws  # noqa: E402
+from test_torch_chain import CHAIN_CFG, pair_draws, pan_sequence  # noqa
 
 torch.set_num_threads(2)
 
@@ -95,11 +103,27 @@ def _case_views(case):
         views = list(views)
         views[1] = np.ascontiguousarray(views[1][:144, :200])
         return views, CHAIN_CFG, (shift, 0)
-    views, sx, sy = jio.synthetic_grid(2, 2, 160, 224, overlap=0.55, seed=33)
-    return list(views), GRID_CFG, (sx, sy)
+    if case == "grid":
+        views, sx, sy = jio.synthetic_grid(2, 2, 160, 224, overlap=0.55,
+                                           seed=33)
+        return list(views), GRID_CFG, (sx, sy)
+    if case == "shuffled":
+        views = pan_sequence(4)
+        return [views[i] for i in (2, 0, 3, 1)], ST_CFG, (0, 0)
+    if case == "noise":
+        views, shift = jio.synthetic_sequence(4, 160, 224, overlap=0.5,
+                                              seed=41)
+        views = list(views)
+        rng = np.random.default_rng(3)
+        views[3] = rng.integers(0, 255, views[3].shape).astype(np.uint8)
+        return views, ST_CFG, (shift, 0)
+    return ([jio.synthetic_pair(160, 224, seed=30 + i)[0] for i in range(3)],
+            ST_CFG, (0, 0))
 
 
 CASES = ("sequence", "mixed_sizes", "grid")
+# the JAX package's topology cases (tests/test_pipeline.py:655, :684, :424)
+TOPOLOGIES = ("shuffled", "noise", "unrelated")
 
 
 def _recording(module):
@@ -125,7 +149,7 @@ def runs(tmp_path_factory):
         tspy, tseen = _recording(tpipe)
         mp.setattr(jpipe, "_seam_and_blend", jspy)
         mp.setattr(tpipe, "_seam_and_blend", tspy)
-        for case in CASES:
+        for case in CASES + TOPOLOGIES:
             views, cfg, shifts = _case_views(case)
             dump = case == "sequence"
             pj, mj = jist.Stitcher(cfg).stitch(
@@ -177,6 +201,39 @@ def test_stitcher_pano_extends(runs, case):
     else:
         assert pt.shape[1] > 224 + sx * 0.6
         assert pt.shape[0] > 160 + sy * 0.6
+
+
+@pytest.mark.parametrize("case", TOPOLOGIES)
+def test_stitcher_topology_matches_jax(runs, case):
+    """A panning camera's views in a shuffled order: the seams follow the
+    spanning tree's edges (u > v among them) as JAX's do, focal within
+    1e-3. A noise view: left out of the canvas (reachable [T, T, T, F]),
+    the pano spanning the three views, focal within 2e-2 (a near-pure
+    translation: see test_torch_stream). Three unrelated scenes: every
+    pair flagged under the confidence threshold in both."""
+    pj, mj, ej = runs[case]["j"]
+    pt, mt, et = runs[case]["t"]
+    thresh = ST_CFG.matcher.conf_thresh
+    assert sorted(mt) == sorted(mj)
+    assert et == ej
+    assert mt["reachable"] == mj["reachable"]
+    ct, cj = np.asarray(mt["pair_confidences"]), \
+        np.asarray(mj["pair_confidences"])
+    assert np.array_equal(ct > thresh, cj > thresh)
+    np.testing.assert_allclose(ct, cj, atol=0.05)
+    f_tol = 2e-2 if case == "noise" else 1e-3
+    assert abs(mt["focal"] - mj["focal"]) <= f_tol * mj["focal"]
+    for ax in (0, 1):
+        assert abs(pt.shape[ax] - pj.shape[ax]) <= 0.02 * pj.shape[ax]
+    if case == "shuffled":
+        assert all(mt["reachable"]) and any(u > v for u, v in et)
+    elif case == "noise":
+        shift = runs[case]["shifts"][0]
+        assert mt["reachable"] == [True, True, True, False]
+        assert 224 + shift <= pt.shape[1] <= 224 + 3 * shift
+        assert pt.std() > 20
+    else:
+        assert (ct <= thresh).all()
 
 
 def test_stage_dumps_match_jax(runs):
