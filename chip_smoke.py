@@ -116,20 +116,45 @@ result line is printed):
                 pairs, K1 and K2 (one scale per view, max error 0)
                 against their plain versions with their times, and four
                 1080p pairs against stitch_pair_impl with the same draws.
-18. cli       — `imagestitch_tpu_torch.cli demo --size 1080x1920` on the
+18. options_reference — the options of ROADMAP item 13 on the card
+                against the CPU with the same draws: on the 192x256
+                rotation pair the ramp blend with the colour-gradient seam,
+                the Voronoi seam, CHANNELS and CHANNELS_BLOCKS, ORB wta_k 3
+                and 4, the interior crop and the eight projectors K2 does
+                not carry (launches: detector maps 2, warp 0 for those, 1
+                for the others); the reprojection bundle adjuster through
+                Stitcher on a 3-view 192x256 panning sequence.
+19. detailed_path — Stitcher with OpenCV stitching_detailed's defaults
+                (work_megapix 0.6, horizontal wave correction, spherical
+                warp, GAIN_BLOCKS, DP colour seam, multi-band) on a panning
+                camera's four 1080x1920 views: every view reachable, focal
+                within 5% of 1728 px, the pano's width within 5% of the
+                pan's spherical extent, launches per stitch (detector maps
+                1 for four 581x1033 work views, warp 1 into 4 x 1458x8256),
+                the median of 3 warm stitches and their stages; K1 at the
+                work-scale batch and K2 on its spherical launch's inputs
+                against their plain versions with their times; card
+                against CPU on three 160x224 views.
+20. ramp_path — stitch_pair with the ramp blend and the colour-gradient
+                DP seam on the 1080p rotation and 40%-overlap translation
+                pairs: h_valid, focal / offset / width, launches (detector
+                maps 2, warp 1 per pair), the median of 5 warm stitches of
+                each, the rotation pair's stage split.
+21. cli       — `imagestitch_tpu_torch.cli demo --size 1080x1920` on the
                 card writes a PNG wider than 1920.
-19. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
+22. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
                 of the 1080p SIFT plane stitch, and the device's busy share
                 of one stitch of each (torch.profiler, after the timing).
-20. kernel_times — K1's and K3's work for one stitch, the kernels alone from
+23. kernel_times — K1's and K3's work for one stitch, the kernels alone from
                 torch.profiler kernel events (median of 20 rounds) with L2
                 flushed by a 256 MB write and warm; K1 also as ten
-                one-level launches, as the chain's one launch for 8 views
-                and as the batches' for 16 1080p and 64 480x640 views; K3
+                one-level launches, as the chain's one launch for 8 views,
+                as the batches' for 16 1080p and 64 480x640 views and as
+                the detailed path's for four 581x1033 work views; K3
                 also by kernel name and by octave, and the CUDA kernels the
                 trace shows per stitch (8). Last, since once the profiler
                 has traced the card, later launches cost the host more.
-21. kernels   — one line {"kernels": [...]}: launches on the main path
+24. kernels   — one line {"kernels": [...]}: launches on the main path
                 (`launches`) and on each path (`launches_by_path`, counted
                 over the path's run), error against the plain version,
                 kernel / plain / library ms and the least time the card
@@ -1047,12 +1072,18 @@ def _hold_k1_batch(views):
     kernel_times times alone)."""
     import numpy as np
     import torch
-    from imagestitch_tpu_torch.ops.cuda_detect import (detect_maps_levels,
-                                                       detect_maps_plain)
     from imagestitch_tpu_torch.ops.image import rgb_to_gray
     from imagestitch_tpu_torch.ops.pyramid import build_pyramid
     gray = rgb_to_gray(torch.as_tensor(np.stack(views)).cuda().float())
-    levels = [lv.contiguous() for lv in build_pyramid(gray, 5, 1.3)]
+    return _hold_k1_levels(build_pyramid(gray, 5, 1.3))
+
+
+def _hold_k1_levels(levels):
+    """K1 in one launch for these (B, H_l, W_l) pyramid levels against the
+    plain version (`_hold_k1_batch`'s numbers and call)."""
+    from imagestitch_tpu_torch.ops.cuda_detect import (detect_maps_levels,
+                                                       detect_maps_plain)
+    levels = [lv.contiguous() for lv in levels]
     worst = {"nms": 0.0, "harris": 0.0, "harris_rel": 0.0, "blur": 0.0}
     for lv, k in zip(levels, detect_maps_levels(levels, 20.0)):
         _hold_detect(k, detect_maps_plain(lv, 20.0), tuple(lv.shape), worst)
@@ -1062,7 +1093,8 @@ def _hold_k1_batch(views):
 
     px = sum(lv.numel() for lv in levels)
     b_ms, b_by = bound_ms(16.0 * px, DETECT_OPS_PER_PX * px)
-    out = {"views": len(views), "shapes": [list(lv.shape) for lv in levels],
+    out = {"views": levels[0].shape[0],
+           "shapes": [list(lv.shape) for lv in levels],
            "max_abs_err": worst, "wrapper_ms": cuda_ms(call),
            "plain_ms": cuda_ms(lambda: [detect_maps_plain(lv, 20.0)
                                         for lv in levels], iters=3, warmup=1),
@@ -1448,7 +1480,7 @@ def phase_batched_path(state):
     import numpy as np
     import torch
     from imagestitch_tpu_torch import PipelineConfig, stitch_pairs_batched
-    from imagestitch_tpu_torch.parallel import batch as batch_mod
+    from imagestitch_tpu_torch import pipeline as P
     from imagestitch_tpu_torch.pipeline import (_pano_canvas_shape,
                                                 stitch_pair_impl)
     from imagestitch_tpu_torch.utils.io import synthetic_pair
@@ -1516,18 +1548,18 @@ def phase_batched_path(state):
         draws = {k: (torch.rand((2048, 4), generator=g),
                      torch.rand((256, 4), generator=g)) for k in range(b)}
         seen = []
-        inner = batch_mod.warp_batched
+        inner = P.warp_batched
 
         def spy(*args, **kw):
             seen.append(args)
             return inner(*args, **kw)
 
-        batch_mod.warp_batched = spy
+        P.warp_batched = spy
         try:
             panos, valids, corners, m = stitch_pairs_batched(pairs,
                                                              draws=draws)
         finally:
-            batch_mod.warp_batched = inner
+            P.warp_batched = inner
         check(len(seen) == 1, f"{name}: {len(seen)} warp calls")
         imgs, k_rinvs, scale, cn, roi_uvs, canvas, kind = seen[0]
         n_scales = int(torch.unique(scale).numel())
@@ -1562,6 +1594,298 @@ def phase_batched_path(state):
         "library_ms", "bound_ms", "bound_by")} for n, v in k2_held.items()}
     emit({"phase": "batched_path", "launches": launches, "bench": summary,
           "distinct_equal_single": equal, "k1": k1_held, "k2": k2_held,
+          "card": state["name"], "smi": state["smi"]})
+
+
+# OpenCV stitching_detailed's defaults, the graph-cut seam replaced by the
+# DP colour seam; the ramp pair's seam and blend; the projectors K2 does
+# not carry (the plain warp serves them, as in the JAX package)
+EXTENDED_KINDS = ("fisheye", "stereographic", "mercator",
+                  "transverseMercator", "compressedPlaneA2B1",
+                  "compressedPlaneA1.5B1", "paniniA2B1", "paniniA1.5B1")
+PAN_FOCAL = 1728.0          # synthetic_pan_sequence(4, 1080, 1920): 0.9 W
+
+
+def _detailed_config(work_megapix=0.6):
+    from imagestitch_tpu_torch import (BlendConfig, CameraConfig,
+                                       ExposureConfig, PipelineConfig,
+                                       SeamConfig, WarpConfig)
+    return PipelineConfig(
+        work_megapix=work_megapix,
+        camera=CameraConfig(wave_correct=True, wave_kind="horiz"),
+        warp=WarpConfig(kind="spherical"),
+        exposure=ExposureConfig(kind="gain_blocks"),
+        seam=SeamConfig(kind="dp_color"),
+        blend=BlendConfig(kind="multiband"))
+
+
+def _ramp_config():
+    from imagestitch_tpu_torch import BlendConfig, PipelineConfig, SeamConfig
+    return PipelineConfig(seam=SeamConfig(kind="dp_colorgrad"),
+                          blend=BlendConfig(kind="ramp"))
+
+
+def _pan_draws(n, seed):
+    import torch
+    from imagestitch_tpu_torch.matching.matcher import pair_list
+    g = torch.Generator().manual_seed(seed)
+    return {p: (torch.rand((2048, 4), generator=g),
+                torch.rand((256, 4), generator=g)) for p in pair_list(n)}
+
+
+def _add_counts(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _option_pair(name, config, k2_launches, total, interior=False):
+    """The 192x256 rotation pair with `config` on the card and on the CPU
+    with the same RANSAC draws: both h_valid, equal keypoint counts, focal
+    within 1e-3, the card's launches (K1 2, K2 `k2_launches`), the panos
+    within 1 intensity on average. With `interior` the crop rectangles
+    may differ by 2 px (a mask pixel at the validity boundary can move
+    the largest rectangle), and the mean is taken over the common
+    top-left region."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import stitch_pair
+    from imagestitch_tpu_torch.utils.io import synthetic_rotation_pair
+    img1, img2, _, _ = synthetic_rotation_pair(192, 256)
+    g = torch.Generator().manual_seed(1)
+    draws = (torch.rand((2048, 4), generator=g),
+             torch.rand((256, 4), generator=g))
+    _reset_counts()
+    pc, mc = stitch_pair(img1, img2, config, device="cuda", draws=draws)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    _add_counts(total, launches)
+    want = {"detect_maps": 2, "sift_octave_maps": 0,
+            "warp_batched": k2_launches, "slab_probe": 0}
+    check(launches == want, f"{name}: launches {launches}, want {want}")
+    pp, mp = stitch_pair(img1, img2, config, device="cpu", draws=draws)
+    check(mc["h_valid"] and mp["h_valid"], f"{name}: h_valid false")
+    check((mc["kpts1"], mc["kpts2"]) == (mp["kpts1"], mp["kpts2"]),
+          f"{name}: keypoints card {mc['kpts1']}, {mc['kpts2']} vs CPU "
+          f"{mp['kpts1']}, {mp['kpts2']}")
+    rel = abs(mc["focal"] - mp["focal"]) / mp["focal"]
+    check(rel < 1e-3, f"{name}: focal card {mc['focal']} vs {mp['focal']}")
+    if interior:
+        check(all(abs(a - b) <= 2 for a, b in zip(pc.shape, pp.shape)),
+              f"{name}: pano {pc.shape} vs CPU {pp.shape}")
+        h, w = min(pc.shape[0], pp.shape[0]), min(pc.shape[1], pp.shape[1])
+        pc, pp = pc[:h, :w], pp[:h, :w]
+    check(pc.shape == pp.shape, f"{name}: pano {pc.shape} vs {pp.shape}")
+    diff = float(np.abs(pc.astype(np.float64) - pp).mean())
+    check(diff < 1.0, f"{name}: pano mean abs diff {diff}")
+    check(pc.std() > 20, f"{name}: flat pano")
+    return {"pano": list(pc.shape), "focal_card": mc["focal"],
+            "focal_cpu": mp["focal"], "kpts": [mc["kpts1"], mc["kpts2"]],
+            "inliers": [mc["num_inliers"], mp["num_inliers"]],
+            "pano_mean_abs_diff": diff, "launches": launches}
+
+
+def phase_options_reference(state):
+    """The options of ROADMAP item 13, each on the card against the CPU
+    with the same draws: on the 192x256 rotation pair the ramp blend with
+    the colour-gradient seam, the Voronoi seam, the CHANNELS and
+    CHANNELS_BLOCKS compensators, ORB wta_k 3 and 4, the interior crop
+    and each of the eight projectors K2 does not carry (K2 launches 0);
+    the reprojection bundle adjuster through Stitcher on a 3-view 192x256
+    panning sequence (focal within 1e-3, about 7x the 1.5e-4 measured
+    between the card and the CPU: its damped normal matrix has a
+    condition number near 1.5e8, so float32 rounding walks its 25 steps
+    apart, 4e-4 between the port and JAX on the CPU)."""
+    import dataclasses
+    import torch
+    from imagestitch_tpu_torch import (DetectorConfig, ExposureConfig,
+                                       PipelineConfig, SeamConfig, Stitcher,
+                                       WarpConfig)
+    from imagestitch_tpu_torch.utils.io import synthetic_pan_sequence
+    base = PipelineConfig()
+    cases = {
+        "ramp_colorgrad": (_ramp_config(), 1),
+        "voronoi": (base.replace(seam=SeamConfig(kind="voronoi")), 1),
+        "channels": (base.replace(exposure=ExposureConfig(kind="channels")),
+                     1),
+        "channels_blocks": (base.replace(
+            exposure=ExposureConfig(kind="channels_blocks")), 1),
+        "wta_k3": (base.replace(detector=DetectorConfig(wta_k=3)), 1),
+        "wta_k4": (base.replace(detector=DetectorConfig(wta_k=4)), 1),
+        "crop_interior": (base.replace(crop="interior"), 1),
+    }
+    for kind in EXTENDED_KINDS:
+        cases[kind] = (base.replace(warp=WarpConfig(kind=kind)), 0)
+    total = {}
+    out = {name: _option_pair(name, cfg, k2, total,
+                              interior=name == "crop_interior")
+           for name, (cfg, k2) in cases.items()}
+
+    views = synthetic_pan_sequence(3, 192, 256)
+    draws = _pan_draws(3, 4)
+    cfg = base.replace(camera=dataclasses.replace(base.camera,
+                                                  ba_kind="reproj"))
+    _reset_counts()
+    pc, mc = Stitcher(cfg).stitch(views, draws=draws)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    _add_counts(total, launches)
+    check(launches["detect_maps"] == 1 and launches["warp_batched"] == 1,
+          f"reproj: launches {launches}")
+    pp, mp = Stitcher(cfg, device="cpu").stitch(views, draws=draws)
+    check(mc["reachable"] == mp["reachable"] == [True] * 3,
+          f"reproj: reachable {mc['reachable']} vs {mp['reachable']}")
+    rel = abs(mc["focal"] - mp["focal"]) / mp["focal"]
+    check(rel < 1e-3, f"reproj: focal card {mc['focal']} vs {mp['focal']}")
+    for ax in (0, 1):
+        check(abs(pc.shape[ax] - pp.shape[ax]) <= 0.05 * pp.shape[ax],
+              f"reproj: pano {pc.shape} vs {pp.shape}")
+    out["ba_reproj_pan3"] = {"pano": list(pc.shape), "pano_cpu":
+                             list(pp.shape), "focal_card": mc["focal"],
+                             "focal_cpu": mp["focal"], "focal_rel": rel,
+                             "launches": launches}
+    _record_path(state, "options_reference", total)
+    emit({"phase": "options_reference", "cases": out,
+          "k2_launches_extended_kinds": {k: out[k]["launches"][
+              "warp_batched"] for k in EXTENDED_KINDS},
+          "card": state["name"], "smi": state["smi"]})
+
+
+def phase_detailed_path(state):
+    """Stitcher with OpenCV stitching_detailed's defaults (work_megapix
+    0.6, horizontal wave correction, spherical warp, GAIN_BLOCKS, multi-
+    band; the DP colour seam for the graph cut) on a panning camera's
+    four 1080x1920 views (focal 1728 px, 10 degrees apart): every view
+    reachable, the focal within 5% of 1728, the pano's width within 5% of
+    the pan's spherical extent (1728 x (30 degrees + 2 atan(960/1728))),
+    launches per stitch (K1 1 for the four 581x1033 work views, K2 1 into
+    the 4 x 1458x8256 spherical canvas); the median of 3 warm stitches
+    and their StageTimer stages. Then K1 at the work-scale batch and K2 on
+    its launch's own inputs against their plain versions, timed (K2 with
+    grid_sample beside it; K1 alone in phase kernel_times), and the
+    configuration on the card against the CPU on three 160x224 views
+    (work_megapix 0.02, same draws)."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import Stitcher
+    from imagestitch_tpu_torch import pipeline as P
+    from imagestitch_tpu_torch.ops.image import rgb_to_gray
+    from imagestitch_tpu_torch.ops.pyramid import build_pyramid
+    from imagestitch_tpu_torch.utils.io import synthetic_pan_sequence
+    views = synthetic_pan_sequence(4, 1080, 1920)
+    cfg = _detailed_config()
+    st = Stitcher(cfg)
+    seen = []
+    inner = P.warp_batched
+
+    def spy(*args, **kw):
+        seen.append(args)
+        return inner(*args, **kw)
+
+    _reset_counts()
+    P.warp_batched = spy
+    try:
+        pano, m = st.stitch(views)
+    finally:
+        P.warp_batched = inner
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    want = {"detect_maps": 1, "sift_octave_maps": 0, "warp_batched": 1,
+            "slab_probe": 0}
+    check(launches == want, f"kernel launches {launches}, want {want}")
+    _record_path(state, "detailed_path", launches)
+    check(m["reachable"] == [True] * 4, f"reachable {m['reachable']}")
+    check(abs(m["focal"] - PAN_FOCAL) < 0.05 * PAN_FOCAL,
+          f"focal {m['focal']} vs {PAN_FOCAL}")
+    span = PAN_FOCAL * (np.deg2rad(30.0) + 2 * np.arctan(960 / PAN_FOCAL))
+    check(abs(pano.shape[1] - span) < 0.05 * span,
+          f"pano width {pano.shape[1]} vs the pan's extent {span:.1f}")
+    check(pano.dtype == np.uint8 and pano.std() > 20, "detailed: pano")
+    check(len(seen) == 1, f"{len(seen)} warp kernel calls")
+    imgs, k_rinvs, scale, corners, roi_uvs, canvas, kind = seen[0][:7]
+    check(kind == "spherical" and tuple(canvas) == (1458, 8256),
+          f"K2 {kind} into {canvas}")
+
+    walls, stages = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, mw = st.stitch(views)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        stages.append({k: v for k, v in mw.items() if k in STAGES})
+    order = sorted(range(3), key=walls.__getitem__)
+
+    x = torch.as_tensor(np.stack(views), device="cuda").float()
+    ws = P._megapix_scale(cfg.work_megapix, (1080, 1920))
+    g = P._work_grays(rgb_to_gray(x), (1080, 1920), ws)
+    check(tuple(g.shape) == (4, 581, 1033), f"work views {tuple(g.shape)}")
+    k1, state["k1_detailed_call"] = _hold_k1_levels(build_pyramid(
+        g, cfg.detector.nlevels, cfg.detector.scale_factor))
+    del x, g
+    state["k1"]["detailed"] = k1
+    k2 = _hold_k2("detailed_4x1080p", imgs, k_rinvs, scale, corners,
+                  roi_uvs, canvas, kind)
+    state["k2"]["detailed"] = {k: k2[k] for k in (
+        "canvas", "views", "max_abs_err", "ms", "warm_ms", "plain_ms",
+        "library_ms", "bound_ms", "bound_by")}
+    del imgs, seen
+
+    small = synthetic_pan_sequence(3)
+    scfg = _detailed_config(0.02)
+    draws = _pan_draws(3, 5)
+    pc, mc = Stitcher(scfg).stitch(small, draws=draws)
+    pp, mp = Stitcher(scfg, device="cpu").stitch(small, draws=draws)
+    check(mc["reachable"] == mp["reachable"] == [True] * 3,
+          f"small: reachable {mc['reachable']} vs {mp['reachable']}")
+    rel = abs(mc["focal"] - mp["focal"]) / mp["focal"]
+    check(rel < 1e-3, f"small: focal card {mc['focal']} vs {mp['focal']}")
+    check(pc.shape == pp.shape, f"small: pano {pc.shape} vs {pp.shape}")
+    diff = float(np.abs(pc.astype(np.float64) - pp).mean())
+    check(diff < 1.0, f"small: pano mean abs diff {diff}")
+    emit({"phase": "detailed_path", "launches": launches,
+          "pano": list(pano.shape), "focal": m["focal"],
+          "pan_extent_px": span, "pair_confidences": m["pair_confidences"],
+          "canvas_overflow": m["canvas_overflow"],
+          "wall_ms_median": walls[order[1]], "wall_ms": sorted(walls),
+          "first_ms": sum(m[k] for k in STAGES if k in m),
+          "stages_ms": {k: float(np.median([st_[k] for st_ in stages]))
+                        for k in STAGES if k in stages[0]},
+          "k1_work_views": k1, "k2_spherical": k2,
+          "card_vs_cpu_3x160x224": {"focal_card": mc["focal"],
+                                    "focal_cpu": mp["focal"],
+                                    "pano": list(pc.shape),
+                                    "pano_mean_abs_diff": diff},
+          "card": state["name"], "smi": state["smi"]})
+
+
+def phase_ramp_path(state):
+    """stitch_pair with the ramp blend and the colour-gradient DP seam on
+    the 1080p rotation pair and on the 40%-overlap 1080p translation pair
+    (synthetic_pair(1080, 1920, overlap=0.4, seed=0)): h_valid, the
+    rotation pair's focal and warped offset, the translation pair's pano
+    width, launches per pair (K1 2, K2 1); the median of 5 warm stitches
+    of each and the rotation pair's stage split."""
+    import torch
+    from imagestitch_tpu_torch import stitch_pair
+    from imagestitch_tpu_torch.utils.io import synthetic_pair
+    img1, img2, _, f_true = state["rot"]
+    t1, t2, shift = synthetic_pair(1080, 1920, overlap=0.4, seed=0)
+    cfg = _ramp_config()
+    runs = [("rotation", img1, img2), ("translation", t1, t2)]
+    _reset_counts()
+    results = {name: stitch_pair(a, b, cfg) for name, a, b in runs}
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    want = {"detect_maps": 2 * len(runs), "sift_octave_maps": 0,
+            "warp_batched": len(runs), "slab_probe": 0}
+    check(launches == want, f"kernel launches {launches}, want {want}")
+    _record_path(state, "ramp_path", launches)
+    summary = _check_pairs(results, f_true, shift)
+    walls = {name: _warm_walls(lambda a=a, b=b: stitch_pair(a, b, cfg))
+             for name, a, b in runs}
+    stages = _stage_breakdown(img1, img2, cfg, 3, trace=False)
+    emit({"phase": "ramp_path", "launches": launches, "pairs": summary,
+          "wall_ms_median": {k: w[2] for k, w in walls.items()},
+          "wall_ms": walls, "rotation_stages": stages,
           "card": state["name"], "smi": state["smi"]})
 
 
@@ -1622,6 +1946,9 @@ def phase_kernel_times(state):
     for name, call in batched.items():
         k1["batched"][name]["ms"] = kernel_ms(call, N_TIMED,
                                               ("detect_maps",), flush)
+    detailed = state.pop("k1_detailed_call")
+    k1["detailed"]["ms"] = kernel_ms(detailed, N_TIMED, ("detect_maps",),
+                                     flush)
     k3 = state["k3"]
     cold = kernel_split_ms(sift, N_TIMED, K3_NAMES, flush)
     k3["ms"] = cold["ms"]
@@ -1637,6 +1964,8 @@ def phase_kernel_times(state):
     for name, call in batched.items():
         k1["batched"][name]["warm_ms"] = kernel_ms(call, N_TIMED,
                                                    ("detect_maps",))
+    k1["detailed"]["warm_ms"] = kernel_ms(detailed, N_TIMED,
+                                          ("detect_maps",))
     warm = kernel_split_ms(sift, N_TIMED, K3_NAMES)
     k3["warm_ms"] = warm["ms"]
     k3["warm_ms_by_name"] = warm["by_name"]
@@ -1646,7 +1975,7 @@ def phase_kernel_times(state):
           "detect_maps": {k: k1[k] for k in ("ms", "warm_ms",
                                               "one_level_ms", "wrapper_ms",
                                               "bound_ms", "chain8",
-                                              "batched")},
+                                              "batched", "detailed")},
           "sift_octave_maps": {k: k3[k] for k in (
               "ms", "warm_ms", "ms_by_name", "warm_ms_by_name", "octave_ms",
               "octave_warm_ms", "cuda_kernels_traced", "wrapper_ms",
@@ -1764,7 +2093,10 @@ def main() -> int:
               ("photo_reference", phase_photo_reference),
               ("multiband_path", phase_multiband_path),
               ("stream_path", phase_stream_path),
-              ("batched_path", phase_batched_path), ("cli", phase_cli),
+              ("batched_path", phase_batched_path),
+              ("options_reference", phase_options_reference),
+              ("detailed_path", phase_detailed_path),
+              ("ramp_path", phase_ramp_path), ("cli", phase_cli),
               ("stages", phase_stages), ("kernel_times", phase_kernel_times)]
     for name, fn in phases:
         try:

@@ -95,9 +95,8 @@ class CameraConfig:
 
 @dataclass(frozen=True)
 class WarpConfig:
-    """Rotation warper configuration. `kind` is checked against this
-    package's projector registry; a kind the JAX package has and this one
-    does not yet raises NotImplementedError."""
+    """Rotation warper configuration; `kind` is checked against the
+    projector registry."""
 
     kind: str = "cylindrical"
     canvas_scale_w: float = 2.1
@@ -106,12 +105,7 @@ class WarpConfig:
     row_rebase: bool = False
 
     def __post_init__(self):
-        from imagestitch_tpu_torch.warp.projectors import (
-            PROJECTORS, UNPORTED_KINDS)
-        if self.kind in UNPORTED_KINDS:
-            raise NotImplementedError(
-                f"warp kind {self.kind!r} is not ported yet "
-                "(ROADMAP Queue A, item 13)")
+        from imagestitch_tpu_torch.warp.projectors import PROJECTORS
         assert self.kind in PROJECTORS, \
             f"unknown warp kind: {self.kind!r} (have {sorted(PROJECTORS)})"
 

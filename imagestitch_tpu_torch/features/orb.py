@@ -4,7 +4,7 @@
 detector-maps kernel (`ops.cuda_detect`; its plain version on the CPU),
 then a border mask, (8, 16) block-max candidates, per-grid-cell top-k with
 2x over-retention, the Harris re-score, intensity-centroid angles and the
-256-bit rotated BRIEF.
+rotated BRIEF (256 bits; with wta_k 3 or 4, 128 one-hot symbols).
 
 Every top-k breaks ties by ascending index (a stable descending sort), the
 order the JAX package's `lax.top_k` gives; invalid slots carry
@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from imagestitch_tpu_torch.config import DetectorConfig
 from imagestitch_tpu_torch.features.pattern import (
-    brief_pattern, brief_pattern_opencv)
+    brief_pattern, brief_pattern_opencv, orb_tuple_pattern)
 from imagestitch_tpu_torch.ops.cuda_detect import (MAX_LEVELS,
                                                    detect_maps_levels)
 from imagestitch_tpu_torch.ops.pyramid import build_pyramid, level_scale
@@ -128,17 +128,37 @@ def _rotated_gather(blurred: torch.Tensor, xk: torch.Tensor,
 
 
 def _orb_descriptors(blurred, xk, yk, angles, cfg: DetectorConfig):
-    """Rotated BRIEF (wta_k=2): (K, 256) {0,1} uint8 bits."""
-    if cfg.wta_k != 2:
-        raise NotImplementedError(
-            "ORB wta_k 3/4 descriptors are not ported yet "
-            "(ROADMAP Queue A, item 13)")
-    pat_np = (brief_pattern_opencv() if cfg.pattern == "opencv"
-              else brief_pattern(256, cfg.patch_size))
-    pat = torch.as_tensor(pat_np, dtype=torch.float32,
-                          device=blurred.device)
-    vals = _rotated_gather(blurred, xk, yk, angles, pat)     # (K, 512)
-    return (vals[:, 0::2] < vals[:, 1::2]).to(torch.uint8)
+    """Rotated BRIEF: wta_k 2 gives (K, 256) {0,1} uint8 bits (point pair
+    comparisons); wta_k 3 and 4 give 128 symbols, each the index of the
+    brightest of its tuple's points (the reference's tie rules), stored
+    one-hot as (K, 128·wta_k) {0,1} uint8 bits: their Hamming distance is
+    twice OpenCV's NORM_HAMMING2 symbol distance."""
+    dev = blurred.device
+    if cfg.wta_k == 2:
+        pat_np = (brief_pattern_opencv() if cfg.pattern == "opencv"
+                  else brief_pattern(256, cfg.patch_size))
+        pat = torch.as_tensor(pat_np, dtype=torch.float32, device=dev)
+        vals = _rotated_gather(blurred, xk, yk, angles, pat)  # (K, 512)
+        return (vals[:, 0::2] < vals[:, 1::2]).to(torch.uint8)
+    ntuples = 128
+    pat = torch.as_tensor(orb_tuple_pattern(cfg.wta_k, ntuples,
+                                            cfg.patch_size),
+                          dtype=torch.float32, device=dev)
+    vals = _rotated_gather(blurred, xk, yk, angles, pat)
+    vals = vals.reshape(vals.shape[0], ntuples, cfg.wta_k)
+    if cfg.wta_k == 3:
+        t0, t1, t2 = vals.unbind(-1)
+        code = torch.where(t2 > t1,
+                           torch.where(t2 > t0, 2, 0),
+                           (t1 > t0).to(torch.int64))
+    else:
+        t0, t1, t2, t3 = vals.unbind(-1)
+        u = (t1 > t0).to(torch.int64)
+        v = 2 + (t3 > t2).to(torch.int64)
+        code = torch.where(torch.maximum(t0, t1) > torch.maximum(t2, t3),
+                           u, v)
+    onehot = code[..., None] == torch.arange(cfg.wta_k, device=dev)
+    return onehot.reshape(vals.shape[0], ntuples * cfg.wta_k).to(torch.uint8)
 
 
 def orb_maps(grays: torch.Tensor, cfg: DetectorConfig = DetectorConfig()):

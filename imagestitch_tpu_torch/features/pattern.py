@@ -4,7 +4,8 @@ Copied from `imagestitch_tpu.features.pattern` so that this package
 imports nothing of the JAX one: the seeded-Gaussian framework pattern
 (BRIEF's G-II distribution, σ = patch_size/5), OpenCV's learned
 `bit_pattern_31_` table (data/orb_pattern_cv.npy, BSD-3-Clause, the same
-bytes as the JAX package's copy) and the intensity-centroid disc.
+bytes as the JAX package's copy), the sampling tuples of the wta_k 3/4
+descriptors and the intensity-centroid disc.
 """
 
 from __future__ import annotations
@@ -66,3 +67,24 @@ def ic_angle_offsets(half_patch: int = 15):
     return (us.reshape(-1).astype(np.int32),
             vs.reshape(-1).astype(np.int32),
             inside.reshape(-1))
+
+
+@functools.lru_cache(maxsize=None)
+def orb_tuple_pattern(tuple_size: int, ntuples: int = 128,
+                      patch_size: int = 31,
+                      seed: int = PATTERN_SEED) -> np.ndarray:
+    """Sampling tuples of the wta_k 3/4 descriptors: each of `ntuples`
+    code symbols compares `tuple_size` distinct points drawn from the
+    framework pattern's point pool. Returns (ntuples*tuple_size, 2) int32
+    offsets."""
+    pool = brief_pattern(256, patch_size, seed)
+    rng = np.random.default_rng(seed ^ 0x9E3779B9)
+    out = np.zeros((ntuples * tuple_size, 2), np.int32)
+    for i in range(ntuples):
+        chosen: list[tuple[int, int]] = []
+        while len(chosen) < tuple_size:
+            p = tuple(pool[rng.integers(0, len(pool))])
+            if p not in chosen:
+                chosen.append(p)
+        out[i * tuple_size:(i + 1) * tuple_size] = chosen
+    return out

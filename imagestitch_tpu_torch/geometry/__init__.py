@@ -1,1 +1,14 @@
-"""imagestitch_tpu_torch.geometry (see the modules)."""
+"""imagestitch_tpu_torch.geometry (see the modules); the bundle adjusters
+and wave correction of `imagestitch_tpu.geometry` are exported here."""
+
+from imagestitch_tpu_torch.geometry.bundle import (bundle_adjust,
+                                                   bundle_adjust_ray,
+                                                   bundle_adjust_reproj,
+                                                   wave_correct)
+
+__all__ = [
+    "bundle_adjust",
+    "bundle_adjust_ray",
+    "bundle_adjust_reproj",
+    "wave_correct",
+]

@@ -1,8 +1,11 @@
-"""Ray-error bundle adjustment (`imagestitch_tpu.geometry.bundle`, the
-reference driver's BundleAdjusterRay): per-camera (focal, Rodrigues
-rotation) refined by Levenberg–Marquardt over the ray differences of all
-inlier correspondences, with the same damping schedule and stopping rule
-as the JAX package; the Jacobian comes from forward-mode autodiff.
+"""Bundle adjustment and wave correction (`imagestitch_tpu.geometry.
+bundle`): the ray-error adjuster (the reference program's
+BundleAdjusterRay: per-camera focal and Rodrigues rotation) and the
+reprojection adjuster (OpenCV's BundleAdjusterReproj: focal, ppx, ppy,
+aspect and rotation), both refined by Levenberg–Marquardt over all inlier
+correspondences with the same damping schedule and stopping rule as the
+JAX package (the Jacobian from forward-mode autodiff); and OpenCV's
+waveCorrect.
 """
 
 from __future__ import annotations
@@ -123,14 +126,78 @@ def bundle_adjust_ray(cameras: CameraParams, src_pts: torch.Tensor,
     return cameras.replace(focal=pf[:, 0].abs(), R=G @ Rf)
 
 
+def bundle_adjust_reproj(cameras: CameraParams, src_pts: torch.Tensor,
+                         dst_pts: torch.Tensor, pt_valid: torch.Tensor,
+                         pair_from: torch.Tensor, pair_to: torch.Tensor,
+                         pair_valid: torch.Tensor, iters: int = 25
+                         ) -> CameraParams:
+    """Refine (focal, ppx, ppy, aspect, Rodrigues rotation) per camera by
+    minimizing the pixel error of the rotation-only transfer
+    proj(K_j·R_jᵀ·R_i·K_i⁻¹·[p, 1]) − q over (P, T, 2) correspondences;
+    camera 0 is re-anchored afterwards."""
+    N = cameras.focal.shape[0]
+    x0 = torch.cat([cameras.focal[:, None], cameras.ppx[:, None],
+                    cameras.ppy[:, None], cameras.aspect[:, None],
+                    R_to_rodrigues(cameras.R)], dim=1).reshape(-1)
+    pair_from = pair_from.long()
+    pair_to = pair_to.long()
+    m = (pt_valid & pair_valid[:, None]).to(torch.float32)
+
+    def residuals(x):
+        p = x.reshape(N, 7)
+        pi, pj = p[pair_from], p[pair_to]
+        fi, pxi, pyi, ai = (pi[:, k, None] for k in range(4))
+        fj, pxj, pyj, aj = (pj[:, k, None] for k in range(4))
+        Ri = rodrigues_to_R(pi[:, 4:7])
+        Rj = rodrigues_to_R(pj[:, 4:7])
+        xx = (src_pts[..., 0] - pxi) / fi
+        yy = (src_pts[..., 1] - pyi) / (fi * ai)
+        d = torch.stack([xx, yy, torch.ones_like(xx)], dim=-1)
+        w = (d @ Ri.transpose(-1, -2)) @ Rj
+        z = torch.where(w[..., 2].abs() < 1e-8,
+                        torch.full_like(w[..., 2], 1e-8), w[..., 2])
+        u = fj * w[..., 0] / z + pxj
+        v = fj * aj * w[..., 1] / z + pyj
+        r = (torch.stack([u, v], dim=-1) - dst_pts) * m[..., None]
+        return r.reshape(-1)
+
+    pf = _lm_minimize(residuals, x0, iters).reshape(N, 7)
+    Rf = rodrigues_to_R(pf[:, 4:7])
+    G = cameras.R[0] @ Rf[0].T
+    return cameras.replace(focal=pf[:, 0].abs(), ppx=pf[:, 1],
+                           ppy=pf[:, 2], aspect=pf[:, 3].abs(), R=G @ Rf)
+
+
 def bundle_adjust(cameras: CameraParams, src_pts, dst_pts, pt_valid,
                   pair_from, pair_to, pair_valid, iters: int = 25,
                   kind: str = "ray") -> CameraParams:
-    """Bundle-adjuster dispatch (the ray adjuster; "reproj" is not ported
-    yet)."""
-    if kind != "ray":
-        raise NotImplementedError(
-            f"bundle adjuster {kind!r} is not ported yet "
-            "(ROADMAP Queue A, item 13)")
-    return bundle_adjust_ray(cameras, src_pts, dst_pts, pt_valid,
-                             pair_from, pair_to, pair_valid, iters)
+    """Bundle-adjuster dispatch: kind "ray" (BundleAdjusterRay) or
+    "reproj" (BundleAdjusterReproj)."""
+    fn = {"ray": bundle_adjust_ray, "reproj": bundle_adjust_reproj}[kind]
+    return fn(cameras, src_pts, dst_pts, pt_valid, pair_from, pair_to,
+              pair_valid, iters)
+
+
+def wave_correct(R: torch.Tensor, kind: str = "horiz") -> torch.Tensor:
+    """Straighten the panorama's horizon (OpenCV detail::waveCorrect):
+    rotate all (N, 3, 3) cameras by one global rotation whose up axis is
+    the smallest-eigenvalue direction of the cameras' x-axis moment
+    ("horiz") or the largest ("vert").
+
+    The 3x3 eigen-decomposition and the global rotation are computed on
+    the host in float32 (a device solver would cost more in launches and
+    a readback than the arithmetic); only the product with R runs on R's
+    device. The result does not depend on the eigenvectors' signs."""
+    Rh = R.detach().to("cpu", torch.float32)
+    x_axes = Rh[:, :, 0]
+    _, V = torch.linalg.eigh(x_axes.T @ x_axes)
+    rg1 = V[:, 0] if kind == "horiz" else V[:, 2]
+    img_k = Rh[:, :, 2].sum(dim=0)
+    rg0 = torch.linalg.cross(rg1, img_k)
+    rg0 = rg0 / torch.linalg.norm(rg0).clamp(min=1e-12)
+    rg2 = torch.linalg.cross(rg0, rg1)
+    conf = ((x_axes @ rg0).sum() if kind == "horiz"
+            else -(x_axes @ rg1).sum())
+    sign = -1.0 if float(conf) < 0 else 1.0
+    G = torch.stack([rg0 * sign, rg1 * sign, rg2])
+    return (G.to(R.device) @ R.to(torch.float32)).to(torch.float32)

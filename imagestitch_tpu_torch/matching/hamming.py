@@ -4,8 +4,9 @@ descriptors (ORB), squared L2 between float ones (SIFT).
 With bits a, b in {0, 1}, popcount(a XOR b) = Σa + Σb − 2·a·b, so the
 (N, M) distance matrix is one (N, B) x (B, M) matrix product plus rank-1
 corrections (`imagestitch_tpu.matching.hamming`). Here the product is a
-float32 matmul: every value is an integer <= 256, exact in float32 as long
-as TF32 is off (the entry points turn it off).
+float32 matmul: every value is an integer <= B (256 bits, or 384 and 512
+for the one-hot wta_k 3 and 4 codes), exact in float32 as long as TF32 is
+off (the entry points turn it off).
 """
 
 from __future__ import annotations

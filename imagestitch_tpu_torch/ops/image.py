@@ -1,6 +1,7 @@
-"""Image substrate: gray conversion, separable Gaussian blur, rectangular
-dilation, the bilinear remap (the OpenCV cvtColor / GaussianBlur / dilate
-/ remap the reference leans on) and `jax.image.resize`'s linear resize, as
+"""Image substrate: gray conversion, separable Gaussian blur, Sobel and box
+filters, rectangular dilation and erosion, the bilinear and nearest remaps
+(the OpenCV cvtColor / GaussianBlur / Sobel / boxFilter / dilate / erode /
+remap the reference leans on) and `jax.image.resize`'s linear resize, as
 plain tensor code on (H, W) or (H, W, C) float32, the layouts of
 `imagestitch_tpu.ops.image`.
 
@@ -78,6 +79,24 @@ def gaussian_blur(img: torch.Tensor, ksize: int = 7,
     return _sep_filter2d(img.to(torch.float32), k, k)
 
 
+def sobel(img: torch.Tensor, dx: int, dy: int, ksize: int = 3
+          ) -> torch.Tensor:
+    """cv::Sobel with ksize 3 over (H, W) or (H, W, C), reflect-101."""
+    assert ksize == 3 and (dx, dy) in ((1, 0), (0, 1))
+    smooth = torch.tensor([1.0, 2.0, 1.0], device=img.device)
+    diff = torch.tensor([-1.0, 0.0, 1.0], device=img.device)
+    if dx == 1:
+        return _sep_filter2d(img.to(torch.float32), diff, smooth)
+    return _sep_filter2d(img.to(torch.float32), smooth, diff)
+
+
+def box_filter(img: torch.Tensor, ksize: int) -> torch.Tensor:
+    """Normalized box filter of (H, W) or (H, W, C), reflect-101."""
+    k = torch.full((ksize,), 1.0 / ksize, dtype=torch.float32,
+                   device=img.device)
+    return _sep_filter2d(img.to(torch.float32), k, k)
+
+
 def _morph_max(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
     """Separable rectangular max filter over the last two dims with the
     asymmetric even-kernel padding (k//2 before, (k-1)//2 after) and -inf
@@ -91,10 +110,21 @@ def _morph_max(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
     return y.reshape(lead + y.shape[-2:])
 
 
+def _morph_min(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
+    """The min twin of `_morph_max` (+inf outside the image)."""
+    return -_morph_max(-x, kh, kw)
+
+
 def dilate(img: torch.Tensor, ksize: tuple[int, int] = (3, 3)
            ) -> torch.Tensor:
     """cv::dilate with a rect kernel over (..., H, W) float32."""
     return _morph_max(img.to(torch.float32), ksize[0], ksize[1])
+
+
+def erode(img: torch.Tensor, ksize: tuple[int, int] = (3, 3)
+          ) -> torch.Tensor:
+    """cv::erode with a rect kernel over (..., H, W) float32."""
+    return _morph_min(img.to(torch.float32), ksize[0], ksize[1])
 
 
 @functools.lru_cache(maxsize=64)
@@ -210,6 +240,23 @@ def remap_bilinear(img: torch.Tensor, xmap: torch.Tensor,
     bot = Ic + (Id - Ic) * fx
     out = top + (bot - top) * fy
     valid = (xmap >= 0) & (xmap <= W - 1) & (ymap >= 0) & (ymap <= H - 1)
+    vmask = valid[..., None] if img.ndim == 3 else valid
+    out = torch.where(vmask, out, torch.full_like(out, border_value))
+    return out, valid
+
+
+def remap_nearest(img: torch.Tensor, xmap: torch.Tensor,
+                  ymap: torch.Tensor, border_value: float = 0.0):
+    """Nearest-neighbour remap (round half to even, as `jnp.round`):
+    img (H, W) or (H, W, C), maps (H', W'). Samples whose rounded tap
+    lies outside the image get `border_value` and valid=False. Returns
+    (out, valid)."""
+    H, W = img.shape[:2]
+    xi = torch.round(xmap).to(torch.int64)
+    yi = torch.round(ymap).to(torch.int64)
+    flat = img.reshape((H * W,) + img.shape[2:])
+    out = flat[yi.clamp(0, H - 1) * W + xi.clamp(0, W - 1)]
+    valid = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
     vmask = valid[..., None] if img.ndim == 3 else valid
     out = torch.where(vmask, out, torch.full_like(out, border_value))
     return out, valid

@@ -3,10 +3,13 @@ stitch_pairs_batched`): the throughput configuration, B independent pairs
 per call (bench.py's 8 pairs at 1080p and 32 at 480x640).
 
 The two kernels run once per batch: the detector maps (K1) once for the
-2B views' pyramids (`features.detect_batched`), and the warp (K2) once for
-the 2B views into 2B canvases, each view with its pair's canvas corner and
-its pair's surface scale. Matching and RANSAC, the cameras and the bundle
-adjustment, gain compensation and the DP seam + blend run pair by pair;
+2B views' pyramids (`features.detect_batched`, on grays at the work scale
+with `work_megapix`), and the warp (K2) once for the 2B views into 2B
+canvases, each view with its pair's canvas corner and its pair's surface
+scale (the projectors K2 does not carry warp by the plain warp). Matching
+and RANSAC, the cameras, the bundle adjustment and the wave correction,
+exposure compensation and the seam + blend run pair by pair, through the
+same functions as `stitch_pair_impl`;
 the bundle adjustment's LM loop reads its stop test back to the host at
 every step, so a batched adjuster is later work.
 
@@ -25,12 +28,11 @@ import torch
 from imagestitch_tpu_torch.config import PipelineConfig
 from imagestitch_tpu_torch.features import detect_batched
 from imagestitch_tpu_torch.matching.matcher import match_pairs
-from imagestitch_tpu_torch.ops.cuda_warp import warp_batched
 from imagestitch_tpu_torch.ops.image import rgb_to_gray
 from imagestitch_tpu_torch.pipeline import (
-    _apply_exposure, _generator, _pano_canvas_shape, _seam_and_blend,
-    check_supported, pair_cameras, pair_metrics, resolve_device,
-    set_full_precision, warp_inputs, warp_scale)
+    _apply_exposure, _generator, _megapix_scale, _pano_canvas_shape,
+    _seam_and_blend, _work_grays, check_supported, pair_cameras, pair_metrics,
+    resolve_device, set_full_precision, warp_inputs, warp_scale, warp_views)
 from imagestitch_tpu_torch.types import index
 
 
@@ -75,8 +77,10 @@ def stitch_pairs_batched_impl(pairs: torch.Tensor, cfg: PipelineConfig,
     B, _, H, W = pairs.shape[:4]
     views = pairs.reshape((2 * B,) + tuple(pairs.shape[2:])).contiguous()
     ids = [(2 * b, 2 * b + 1) for b in range(B)]
+    ws = _megapix_scale(cfg.work_megapix, (H, W))
     with stage("detect"):
-        feats = detect_batched(rgb_to_gray(views), cfg.detector)
+        feats = detect_batched(_work_grays(rgb_to_gray(views), (H, W), ws),
+                               cfg.detector)
     with stage("match"):
         mis = match_pairs(feats, ids, cfg.matcher, cfg.ransac,
                           None if draws is None
@@ -88,7 +92,7 @@ def stitch_pairs_batched_impl(pairs: torch.Tensor, cfg: PipelineConfig,
     with stage("cameras"):
         for b, (i, j) in enumerate(ids):
             f1, f2 = index(feats, i), index(feats, j)
-            c = pair_cameras(f1, f2, mis[b], ((H, W), (H, W)), cfg)
+            c = pair_cameras(f1, f2, mis[b], ((H, W), (H, W)), cfg, ws)
             s = warp_scale(c)
             fs.append((f1, f2))
             cams.append(c)
@@ -96,7 +100,7 @@ def stitch_pairs_batched_impl(pairs: torch.Tensor, cfg: PipelineConfig,
             inputs.append(warp_inputs(c, s, (H, W), 2, canvas_hw, cfg))
     with stage("warp"):
         corners = torch.stack([inp[1] for inp in inputs])
-        warped, masks = warp_batched(
+        warped, masks = warp_views(
             views, torch.cat([inp[0] for inp in inputs]),
             torch.stack(scales).reshape(B).repeat_interleave(2),
             corners.repeat_interleave(2, dim=0),

@@ -1,10 +1,15 @@
-"""The stitch drivers of `imagestitch_tpu.pipeline`: gray -> ORB on a
-5-level pyramid (one detector-maps launch for all levels of all images)
-or SIFT on 4 octaves (octave-maps kernel per octave and image) -> Hamming
-or L2 2-NN -> RANSAC homography -> focal + chained rotations -> ray
-bundle adjustment -> cylindrical warp of all images into one shared
-canvas (warp kernel, one launch) -> gain compensation -> DP seams ->
-20x20 seam dilate + feather blend -> bbox crop.
+"""The stitch entry points of `imagestitch_tpu.pipeline`: gray (resized to
+the work scale with `work_megapix`) -> ORB on a 5-level pyramid (one
+detector-maps launch for all levels of all images) or SIFT on 4 octaves
+(octave-maps kernel per octave and image) -> Hamming or L2 2-NN ->
+RANSAC homography -> focal + chained rotations -> ray or reprojection
+bundle adjustment -> optional wave correction -> intrinsics scaled back
+to full resolution -> warp of all images into one shared canvas (the
+cylindrical, spherical and plane kinds in one warp-kernel launch, the
+other projectors by the plain warp) -> gain compensation (gain,
+channels, per block) -> DP, Voronoi or no seams -> 20x20 seam dilate +
+feather or multi-band blend, or the seam-anchored ramp of a pair -> bbox
+or interior crop.
 
 Entry points, each running on the CUDA card unless the caller names
 another device (with device=None and no card they raise):
@@ -14,8 +19,8 @@ another device (with device=None and no card they raise):
 - `Stitcher(config).stitch(images)` and `stitch(images)`: N views of any
   sizes and pair topology (all pairs, a spanning tree of the confident
   ones, the largest component composed).
-Configuration kinds this package does not carry yet raise
-NotImplementedError naming their ROADMAP item.
+The host seams (graph cut, full DP components) and SCANS mode are not
+ported yet: they raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,23 +34,29 @@ import torch.nn.functional as F
 
 from imagestitch_tpu_torch.blend.feather import feather_blend
 from imagestitch_tpu_torch.blend.multiband import multiband_blend
+from imagestitch_tpu_torch.blend.ramp import ramp_blend_pair
 from imagestitch_tpu_torch.config import PipelineConfig
-from imagestitch_tpu_torch.exposure.gain import gain_compensate
+from imagestitch_tpu_torch.exposure.gain import (
+    channels_compensate, channels_compensate_blocks, gain_compensate,
+    gain_compensate_blocks)
 from imagestitch_tpu_torch.features import detect as detect_features
 from imagestitch_tpu_torch.features import detect_batched
 from imagestitch_tpu_torch.geometry.autocalib import _masked_median
-from imagestitch_tpu_torch.geometry.bundle import bundle_adjust
+from imagestitch_tpu_torch.geometry.bundle import bundle_adjust, wave_correct
 from imagestitch_tpu_torch.geometry.rotation import (
     estimate_cameras, estimate_cameras_host, estimate_cameras_spliced)
 from imagestitch_tpu_torch.matching.matcher import (match_all, match_pair,
                                                     match_pairs, pair_list)
-from imagestitch_tpu_torch.ops.cuda_warp import warp_batched
+from imagestitch_tpu_torch.ops.cuda_warp import KIND_IDS, warp_batched
 from imagestitch_tpu_torch.ops.image import dilate, rgb_to_gray
+from imagestitch_tpu_torch.ops.pyramid import resize_linear_mxu
 from imagestitch_tpu_torch.seam.dp import dp_seam_pair
+from imagestitch_tpu_torch.seam.voronoi import voronoi_seam_pair
 from imagestitch_tpu_torch.types import CameraParams, stack
+from imagestitch_tpu_torch.utils.crop import autocrop
 from imagestitch_tpu_torch.utils.log import StageTimer
 from imagestitch_tpu_torch.warp.projectors import _camera_mats
-from imagestitch_tpu_torch.warp.warper import roi_bounds
+from imagestitch_tpu_torch.warp.warper import roi_bounds, warp_batched_plain
 
 
 def resolve_device(device=None) -> torch.device:
@@ -67,37 +78,59 @@ def set_full_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def check_supported(cfg: PipelineConfig, compose: bool = False) -> None:
-    """Raise NotImplementedError for configuration kinds not ported yet.
-    `compose`: the caller composes at `compose_megapix` (the Stitcher; the
-    pair and chain drivers do not read that field)."""
+def check_supported(cfg: PipelineConfig) -> None:
+    """Raise NotImplementedError for what is not ported yet: SCANS mode
+    (item 16) and the host seams, graph cut and the full DP component
+    machinery (item 15)."""
     todo = []
     if cfg.mode != "panorama":
         todo.append(("mode='scans'", 16))
-    if cfg.work_megapix > 0:
-        todo.append(("work_megapix", 13))
-    if compose and cfg.compose_megapix > 0:
-        todo.append(("compose_megapix", 13))
-    if cfg.detector.kind == "orb" and cfg.detector.wta_k != 2:
-        todo.append(("ORB wta_k 3/4", 13))
-    if cfg.camera.ba_refine and cfg.camera.ba_kind != "ray":
-        todo.append(("bundle adjuster 'reproj'", 13))
-    if cfg.camera.wave_correct:
-        todo.append(("wave correction", 13))
-    if cfg.exposure.kind not in ("gain", "none"):
-        todo.append((f"exposure kind {cfg.exposure.kind!r}", 13))
     if cfg.seam.kind.startswith("graphcut") or cfg.seam.full_components:
         todo.append((f"host seam {cfg.seam.kind!r}", 15))
-    elif cfg.seam.kind not in ("dp_color", "none"):
-        todo.append((f"seam kind {cfg.seam.kind!r}", 13))
-    if cfg.blend.kind not in ("feather", "multiband", "none"):
-        todo.append((f"blend kind {cfg.blend.kind!r}", 13))
-    if cfg.crop != "bbox":
-        todo.append(("crop='interior'", 13))
     if todo:
         what, item = todo[0]
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP Queue A, item {item})")
+
+
+def _megapix_scale(megapix: float, hw: tuple[int, int]) -> float:
+    """The scale that brings an (H, W) image down to `megapix` (OpenCV
+    stitching_detailed's work and compose scales: min(1, sqrt(megapix·1e6
+    / area)); <= 0 disables)."""
+    if megapix <= 0:
+        return 1.0
+    H, W = hw
+    return min(1.0, float(np.sqrt(megapix * 1e6 / (H * W))))
+
+
+def _scaled_dim(d: int, s: float) -> int:
+    return max(int(round(d * s)), 1)
+
+
+def _work_grays(grays: torch.Tensor, hw: tuple[int, int], ws: float
+                ) -> torch.Tensor:
+    """(..., H, W) grays resized to the work scale (unchanged at 1)."""
+    if ws >= 1.0:
+        return grays
+    return resize_linear_mxu(grays, (_scaled_dim(hw[0], ws),
+                                     _scaled_dim(hw[1], ws)))
+
+
+def _upscale_cameras(cams: CameraParams, s: float) -> CameraParams:
+    """Scale intrinsics by s (rotations are scale-free)."""
+    return cams.replace(focal=cams.focal * s, ppx=cams.ppx * s,
+                        ppy=cams.ppy * s)
+
+
+def _finish_cameras(cams: CameraParams, cfg: PipelineConfig,
+                    ws: float) -> CameraParams:
+    """After the bundle adjustment: wave correction, then the work-scale
+    intrinsics scaled back to full resolution."""
+    if cfg.camera.wave_correct:
+        cams = cams.replace(R=wave_correct(cams.R, cfg.camera.wave_kind))
+    if ws < 1.0:
+        cams = _upscale_cameras(cams, 1.0 / ws)
+    return cams
 
 
 def _pano_canvas_shape(hw: tuple[int, int], n_images: int,
@@ -121,10 +154,21 @@ def _warp_all_shared(images: torch.Tensor, cams: CameraParams, scale,
     n = images.shape[0]
     k_rinvs, corner, roi_uvs, overflow = warp_inputs(
         cams, scale, images.shape[1:3], n, canvas_hw, cfg, src_sizes)
-    warped, masks = warp_batched(
+    warped, masks = warp_views(
         images.contiguous(), k_rinvs, scale, corner.expand(n, 2), roi_uvs,
         canvas_hw, cfg.warp.kind, src_sizes=src_sizes)
     return warped, masks, corner, overflow, roi_uvs
+
+
+def warp_views(imgs, k_rinvs, scale, corners, roi_uvs, canvas_hw, kind,
+               src_sizes=None):
+    """The warp by projector kind, as the JAX package chooses it: the
+    warp kernel's kinds (cylindrical, spherical, plane) in one
+    `warp_batched` launch, the other projectors by the plain warp, image
+    by image, on the images' device."""
+    fn = warp_batched if kind in KIND_IDS else warp_batched_plain
+    return fn(imgs, k_rinvs, scale, corners, roi_uvs, canvas_hw, kind,
+              src_sizes=src_sizes)
 
 
 def warp_inputs(cams: CameraParams, scale, hw: tuple[int, int], n: int,
@@ -150,8 +194,18 @@ def warp_inputs(cams: CameraParams, scale, hw: tuple[int, int], n: int,
 
 
 def _apply_exposure(warped, masks, cfg: PipelineConfig):
-    if cfg.exposure.kind == "gain":
+    """Exposure compensation of shared-frame canvases by cfg.exposure.kind."""
+    kind = cfg.exposure.kind
+    if kind == "gain":
         _, warped = gain_compensate(warped, masks)
+    elif kind == "gain_blocks":
+        _, warped = gain_compensate_blocks(warped, masks,
+                                           cfg.exposure.block_size)
+    elif kind == "channels":
+        _, warped = channels_compensate(warped, masks)
+    elif kind == "channels_blocks":
+        _, warped = channels_compensate_blocks(warped, masks,
+                                               cfg.exposure.block_size)
     return warped
 
 
@@ -179,47 +233,80 @@ def _seam_and_blend(images, masks, cfg: PipelineConfig,
     spanning tree); None means the chain (i, i+1). The DP runs on a window
     bounded by the overlap a two-view pair can have (1.1x the source size
     for the contracting cylindrical/spherical warps, 1.3x otherwise,
-    128-aligned)."""
+    128-aligned). The ramp blend of a pair finds its own full-resolution
+    vertical DP seam (colour or colour-gradient cost)."""
     n = images.shape[0]
     fac = 1.1 if cfg.warp.kind in ("cylindrical", "spherical") else 1.3
     max_w = (-(-int(round(fac * src_w)) // 128) * 128
              if src_w is not None else None)
     max_h = (-(-int(round(fac * src_h)) // 128) * 128
              if src_h is not None else None)
+    if cfg.blend.kind == "ramp":
+        if n != 2:
+            raise ValueError("blend='ramp' supports exactly 2 images")
+        if cfg.seam.kind not in ("dp_color", "dp_colorgrad", "none"):
+            raise ValueError(
+                f"blend='ramp' needs a DP seam (column-anchored weights); "
+                f"got seam='{cfg.seam.kind}'")
+        out, valid, _ = ramp_blend_pair(
+            images[0], images[1], masks[0], masks[1],
+            use_grad=cfg.seam.kind == "dp_colorgrad", max_overlap_w=max_w)
+        return out, valid
     seam_masks = [masks[i] for i in range(n)]
     if cfg.seam.kind != "none":
         if edges is None:
             edges = [(i, i + 1) for i in range(n - 1)]
         for u, v in edges:
-            a2, b2, _ = dp_seam_pair(
-                images[u], images[v], seam_masks[u], seam_masks[v], False,
-                max_overlap_w=max_w, max_overlap_h=max_h,
-                orient=cfg.seam.orient, scale=cfg.seam.dp_scale)
-            seam_masks[u], seam_masks[v] = a2, b2
+            seam_masks[u], seam_masks[v] = _seam_pair(
+                images[u], images[v], seam_masks[u], seam_masks[v], cfg,
+                max_w, max_h)
     return _blend_resolved(images, torch.stack(seam_masks), masks, cfg,
                            dilate_seam=cfg.seam.kind != "none")
+
+
+def _seam_pair(img_a, img_b, mask_a, mask_b, cfg: PipelineConfig,
+               max_w: int | None = None, max_h: int | None = None):
+    """One pair's seam by cfg.seam.kind (voronoi or a DP cost). Returns
+    the two split masks."""
+    if cfg.seam.kind == "voronoi":
+        return voronoi_seam_pair(mask_a, mask_b)
+    a2, b2, _ = dp_seam_pair(
+        img_a, img_b, mask_a, mask_b, cfg.seam.kind == "dp_colorgrad",
+        max_overlap_w=max_w, max_overlap_h=max_h, orient=cfg.seam.orient,
+        scale=cfg.seam.dp_scale)
+    return a2, b2
 
 
 def register_pair(img1: torch.Tensor, img2: torch.Tensor,
                   cfg: PipelineConfig = PipelineConfig(), draws=None,
                   generator: torch.Generator | None = None):
-    """Stages 1-5 on two (H, W, 3) float32 images: features, matches +
-    homography, cameras, bundle adjustment. Returns (f1, f2, mi, cams)."""
+    """Stages 1-5 on two (H, W, 3) float32 images: features (on grays at
+    the work scale of the larger extent), matches + homography, cameras,
+    bundle adjustment, wave correction, full-resolution intrinsics.
+    Returns (f1, f2, mi, cams)."""
     check_supported(cfg)
-    f1 = detect_features(rgb_to_gray(img1), cfg.detector)
-    f2 = detect_features(rgb_to_gray(img2), cfg.detector)
+    hw1, hw2 = tuple(img1.shape[:2]), tuple(img2.shape[:2])
+    ws = _megapix_scale(cfg.work_megapix,
+                        (max(hw1[0], hw2[0]), max(hw1[1], hw2[1])))
+    f1 = detect_features(_work_grays(rgb_to_gray(img1), hw1, ws),
+                         cfg.detector)
+    f2 = detect_features(_work_grays(rgb_to_gray(img2), hw2, ws),
+                         cfg.detector)
     mi = match_pair(f1, f2, 0, 1, cfg.matcher, cfg.ransac, draws=draws,
                     generator=generator)
-    cams = pair_cameras(f1, f2, mi, (img1.shape[:2], img2.shape[:2]), cfg)
+    cams = pair_cameras(f1, f2, mi, (hw1, hw2), cfg, ws)
     return f1, f2, mi, cams
 
 
-def pair_cameras(f1, f2, mi, hws, cfg: PipelineConfig) -> CameraParams:
-    """Stages 4-5 of a pair: the two cameras from its homography, then the
-    ray bundle adjustment over its inliers. `hws`: the two images' (h, w)."""
+def pair_cameras(f1, f2, mi, hws, cfg: PipelineConfig,
+                 ws: float = 1.0) -> CameraParams:
+    """Stages 4-5 of a pair: the two cameras from its homography at the
+    work scale `ws`, the bundle adjustment over its inliers, the wave
+    correction and the intrinsics scaled to full resolution. `hws`: the
+    two images' full-resolution (h, w)."""
     dev = mi.H.device
-    sizes = torch.tensor([list(hw) for hw in hws], dtype=torch.int32,
-                         device=dev)
+    sizes = torch.tensor([[_scaled_dim(h, ws), _scaled_dim(w, ws)]
+                          for h, w in hws], dtype=torch.int32, device=dev)
     cams = estimate_cameras(mi.H[None], mi.h_valid[None], sizes)
     if cfg.camera.ba_refine:
         pairs = mi.pairs.long()
@@ -230,7 +317,7 @@ def pair_cameras(f1, f2, mi, hws, cfg: PipelineConfig) -> CameraParams:
             torch.ones(1, dtype=torch.int64, device=dev),
             (mi.confidence > cfg.camera.ba_conf_thresh)[None],
             cfg.camera.ba_iters, cfg.camera.ba_kind)
-    return cams
+    return _finish_cameras(cams, cfg, ws)
 
 
 def pair_metrics(f1, f2, mi, cams: CameraParams, overflow, roi_uvs) -> dict:
@@ -297,8 +384,14 @@ def stitch_pair_impl(img1: torch.Tensor, img2: torch.Tensor,
     return pano, valid, corner, metrics
 
 
-def _crop_valid(pano: np.ndarray, valid: np.ndarray):
-    """Crop to the bounding box of the valid pixels."""
+def _crop_valid(pano: np.ndarray, valid: np.ndarray, mode: str = "bbox"):
+    """Crop to the bounding box of the valid pixels, or with mode
+    "interior" to their largest all-valid rectangle."""
+    if mode == "interior":
+        cropped, (y0, x0, h, w) = autocrop(pano, valid)
+        if h == 0:
+            return pano[:1, :1], valid[:1, :1]
+        return cropped, valid[y0:y0 + h, x0:x0 + w]
     ys, xs = np.nonzero(valid)
     if len(ys) == 0:
         return pano[:1, :1], valid[:1, :1]
@@ -312,10 +405,9 @@ def _generator(dev: torch.device, seed: int) -> torch.Generator:
     return gen
 
 
-def _to_uint8(pano: torch.Tensor, valid: torch.Tensor):
-    """Read the canvas back, crop it to the valid bounding box, clip to
-    uint8."""
-    p, _ = _crop_valid(pano.cpu().numpy(), valid.cpu().numpy())
+def _to_uint8(pano: torch.Tensor, valid: torch.Tensor, crop: str = "bbox"):
+    """Read the canvas back, crop it (`_crop_valid`), clip to uint8."""
+    p, _ = _crop_valid(pano.cpu().numpy(), valid.cpu().numpy(), crop)
     return np.clip(p, 0, 255).astype(np.uint8)
 
 
@@ -334,7 +426,7 @@ def stitch_pair(img1, img2, config: PipelineConfig | None = None,
     b = torch.as_tensor(np.asarray(img2), device=dev)
     pano, valid, _, metrics = stitch_pair_impl(a, b, cfg, draws,
                                                _generator(dev, seed))
-    out = _to_uint8(pano, valid)
+    out = _to_uint8(pano, valid, cfg.crop)
     total_ms = (time.perf_counter() - t0) * 1e3
     m = {}
     for k, v in metrics.items():
@@ -361,9 +453,10 @@ def register_chain(imgs: torch.Tensor,
                    cfg: PipelineConfig = PipelineConfig(), draws=None,
                    generator: torch.Generator | None = None):
     """Stages 1-5 of the fixed-N chain on (N, H, W, 3) float32 images on
-    one device: one batched detect, the consecutive pairs i -> i+1 (and,
-    with cfg.chain_splice and N >= 3, the skip pairs i -> i+2), chained
-    cameras and bundle adjustment over those pairs.
+    one device: one batched detect (at the work scale), the consecutive
+    pairs i -> i+1 (and, with cfg.chain_splice and N >= 3, the skip pairs
+    i -> i+2), chained cameras, bundle adjustment over those pairs, wave
+    correction and full-resolution intrinsics.
 
     A pair is good when its H is valid and its confidence exceeds
     cfg.matcher.conf_thresh. Without the splice an image is reachable
@@ -375,7 +468,9 @@ def register_chain(imgs: torch.Tensor,
     check_supported(cfg)
     N, H, W = imgs.shape[:3]
     dev = imgs.device
-    feats = detect_batched(rgb_to_gray(imgs), cfg.detector)
+    ws = _megapix_scale(cfg.work_megapix, (H, W))
+    feats = detect_batched(_work_grays(rgb_to_gray(imgs), (H, W), ws),
+                           cfg.detector)
 
     def match(pairs):
         return match_pairs(feats, pairs, cfg.matcher, cfg.ransac, draws,
@@ -388,7 +483,8 @@ def register_chain(imgs: torch.Tensor,
     mis_list = match(pairs)
     mis = stack(mis_list)
     good = good_of(mis)
-    sizes = torch.tensor([[H, W]] * N, dtype=torch.int32, device=dev)
+    sizes = torch.tensor([[_scaled_dim(H, ws), _scaled_dim(W, ws)]] * N,
+                         dtype=torch.int32, device=dev)
     if cfg.chain_splice and N >= 3:
         pairs2 = [(j, j + 2) for j in range(N - 2)]
         mis2_list = match(pairs2)
@@ -409,7 +505,7 @@ def register_chain(imgs: torch.Tensor,
         cams = _adjust(cams, feats, mis_ba, pairs_ba,
                        (mis_ba.confidence > cfg.camera.ba_conf_thresh)
                        & mis_ba.h_valid, cfg)
-    return feats, mis, cams, reachable
+    return feats, mis, _finish_cameras(cams, cfg, ws), reachable
 
 
 def stitch_chain_front_impl(imgs: torch.Tensor,
@@ -467,7 +563,7 @@ def stitch_chain(images, config: PipelineConfig | None = None,
                                device=dev)
         pano, valid, _, metrics = stitch_chain_impl(
             imgs, cfg, draws, _generator(dev, seed))
-        out = _to_uint8(pano, valid)
+        out = _to_uint8(pano, valid, cfg.crop)
     m = {k: v.detach().cpu().numpy().tolist() for k, v in metrics.items()}
     m.update(timer.summary())
     return out, m
@@ -499,24 +595,31 @@ def register_views(imgs: torch.Tensor, cfg: PipelineConfig,
                    src_sizes: np.ndarray | None = None, dump=None):
     """Stages 1-5 of the N-view stitchers (`Stitcher`,
     `StreamStitcher`) on (N, H, W, 3) float32 images on one device, each
-    step a stage of `timer`: one batched detect (with `src_sizes`, the
-    host (N, 2) true sizes of edge-padded views, keypoints whose patch
-    would reach past a view's true border are dropped, the border growing
-    by scale_factor per pyramid level); `match_all`; rotations chained
-    along the maximum spanning tree of the confident pairs (host); the ray
-    bundle adjustment over the matched pairs. `draws`: optional mapping
-    (i, j) -> (u_first, u_refit) RANSAC draws per pair. `dump` (a
-    `_StageDumper`) writes features.npz, matches.npz and cameras.npz.
-    Returns (cams, tree_edges, reachable (N,) bool, pair confidences),
-    the last two host arrays."""
+    step a stage of `timer`: one batched detect on grays at the work
+    scale (with `src_sizes`, the host (N, 2) true sizes of edge-padded
+    views, keypoints whose patch would reach past a view's true border
+    are dropped, the border growing by scale_factor per pyramid level);
+    `match_all`; rotations chained along the maximum spanning tree of the
+    confident pairs (host); the bundle adjustment over the matched pairs;
+    then the wave correction and the intrinsics scaled to full
+    resolution. `draws`: optional mapping (i, j) -> (u_first, u_refit)
+    RANSAC draws per pair. `dump` (a `_StageDumper`) writes features.npz,
+    matches.npz and cameras.npz. Returns (cams, tree_edges, reachable
+    (N,) bool, pair confidences), the last two host arrays."""
     cfg_d = cfg.detector
     dev = imgs.device
     n, H, W = imgs.shape[:3]
     dump = dump or _StageDumper(None)
-    work_sizes = (src_sizes if src_sizes is not None
-                  else np.asarray([[H, W]] * n, np.int32))
+    ws = _megapix_scale(cfg.work_megapix, (H, W))
+    if src_sizes is not None:
+        work_sizes = np.maximum(np.round(np.asarray(src_sizes) * ws),
+                                1).astype(np.int32)
+    else:
+        work_sizes = np.asarray(
+            [[_scaled_dim(H, ws), _scaled_dim(W, ws)]] * n, np.int32)
     with timer.stage("detect"):
-        feats = detect_batched(rgb_to_gray(imgs), cfg_d)
+        feats = detect_batched(_work_grays(rgb_to_gray(imgs), (H, W), ws),
+                               cfg_d)
         if src_sizes is not None:
             b = cfg_d.edge_threshold * torch.pow(
                 torch.tensor(cfg_d.scale_factor, dtype=torch.float32,
@@ -550,23 +653,26 @@ def register_views(imgs: torch.Tensor, cfg: PipelineConfig,
             cams = _adjust(cams, feats, ms, pairs,
                            torch.as_tensor(keep, device=dev) & ms.h_valid,
                            cfg)
+    cams = _finish_cameras(cams, cfg, ws)
     dump("cameras", focal=cams.focal, R=cams.R, ppx=cams.ppx, ppy=cams.ppy)
     return cams, tree_edges, np.asarray(reachable), conf
 
 
 class Stitcher:
-    """N-image panorama stitcher with per-stage timers: all-pairs matching
-    (or within cfg.matcher.range_width), confidence filtering, rotations
-    chained along the maximum spanning tree of the confident pairs (host),
-    ray bundle adjustment, one warp launch into a shared canvas, gain
-    compensation, DP seams along the tree's edges and the blend. Images
-    outside the tree's largest component are not composed.
+    """N-image panorama stitcher with per-stage timers: registration at
+    the work scale (`register_views`: all-pairs matching or within
+    cfg.matcher.range_width, confidence filtering, rotations chained along
+    the maximum spanning tree of the confident pairs on the host, bundle
+    adjustment, wave correction), the views resized to the compose scale
+    (`compose_megapix`), one warp into a shared canvas, exposure
+    compensation, seams along the tree's edges, the blend and the crop.
+    Images outside the tree's largest component are not composed.
 
     Runs on `device` (default: the CUDA card; with no card it raises)."""
 
     def __init__(self, config: PipelineConfig | None = None, device=None):
         self.cfg = config or PipelineConfig()
-        check_supported(self.cfg, compose=True)
+        check_supported(self.cfg)
         self.device = resolve_device(device)
 
     def stitch(self, images, seed: int = 0, dump_stages: str | None = None,
@@ -605,6 +711,18 @@ class Stitcher:
         cams, tree_edges, reachable, conf = register_views(
             imgs, cfg, timer, draws, gen, full_sizes, dump)
 
+        # composite at compose_megapix: the views resized per channel, the
+        # cameras scaled to match; the pano comes out at that scale
+        cs = _megapix_scale(cfg.compose_megapix, (H, W))
+        if cs < 1.0:
+            H, W = _scaled_dim(H, cs), _scaled_dim(W, cs)
+            imgs = resize_linear_mxu(imgs.permute(0, 3, 1, 2),
+                                     (H, W)).permute(0, 2, 3, 1)
+            cams = _upscale_cameras(cams, cs)
+            if full_sizes is not None:
+                full_sizes = np.maximum(np.round(full_sizes * cs),
+                                        1).astype(np.int32)
+
         with timer.stage("warp"):
             scale = warp_scale(cams)
             canvas_hw = _pano_canvas_shape((H, W), n, cfg)
@@ -621,7 +739,7 @@ class Stitcher:
             pano, valid = _seam_and_blend(warped, masks, cfg, src_w=W,
                                           src_h=H, edges=tree_edges)
             pano, valid = _crop_valid(pano.cpu().numpy(),
-                                      valid.cpu().numpy())
+                                      valid.cpu().numpy(), cfg.crop)
         dump("pano", pano=pano, valid=valid)
         metrics = {
             "n_images": n,

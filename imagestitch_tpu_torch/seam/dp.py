@@ -1,6 +1,7 @@
 """Dynamic-programming seam finder (`imagestitch_tpu.seam.dp`): per-pixel
-colour costs over the overlap and a minimal-cost top-to-bottom path with
-moves in {-1, 0, +1}, found row by row; the masks split along it.
+colour (or colour over gradient) costs over the overlap and a minimal-cost
+top-to-bottom path with moves in {-1, 0, +1}, found row by row; the masks
+split along it. Also the seam-anchored ramp weights of `blend.ramp`.
 
 The forward recurrence runs on the cost's device, one row per step; the
 backtrack reads the int8 choices back to the host once. Transition rows
@@ -14,19 +15,24 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from imagestitch_tpu_torch.ops.image import rgb_to_gray, sobel
+
 BIG = 1e9
 _CHUNK = 8
 
 
 def seam_costs(img1: torch.Tensor, img2: torch.Tensor, both: torch.Tensor,
                use_grad: bool = False) -> torch.Tensor:
-    """Squared L2 colour difference over the overlap, BIG outside."""
-    if use_grad:
-        raise NotImplementedError(
-            "the dp_colorgrad seam cost is not ported yet "
-            "(ROADMAP Queue A, item 13)")
+    """Squared L2 colour difference over the overlap, BIG outside; with
+    `use_grad` (COLOR_GRAD) divided by |grad1| + |grad2| + 1, the
+    gradients' L1 norms from Sobel on the grays."""
     d = img1.to(torch.float32) - img2.to(torch.float32)
     e = (d * d).sum(dim=-1) if d.ndim == 3 else d * d
+    if use_grad:
+        def gmag(im):
+            g = rgb_to_gray(im) if im.ndim == 3 else im
+            return sobel(g, 1, 0).abs() + sobel(g, 0, 1).abs()
+        e = e / (gmag(img1) + gmag(img2) + 1.0)
     return torch.where(both, e, torch.full_like(e, BIG))
 
 
@@ -165,3 +171,29 @@ def dp_seam_pair(img1, img2, mask1, mask2, use_grad: bool = False,
     else:
         m1, m2, _ = horizontal()
     return m1, m2, None
+
+
+def overlap_extents(both: torch.Tensor):
+    """Per-row overlap [left, right] column extents of (H, W) bool, with
+    (0, W-1) for rows that have no overlap. Returns (left, right, has)."""
+    W = both.shape[1]
+    col = torch.arange(W, device=both.device)[None, :]
+    left = torch.where(both, col, W).amin(dim=1)
+    right = torch.where(both, col, -1).amax(dim=1)
+    has = both.any(dim=1)
+    return (torch.where(has, left, 0), torch.where(has, right, W - 1), has)
+
+
+def ramp_weights(both: torch.Tensor, seam: torch.Tensor) -> torch.Tensor:
+    """Seam-anchored piecewise-linear weights of the LEFT image over the
+    overlap: 1 at the row's left overlap edge, 0.5 at the seam, 0 at its
+    right edge. Returns (H, W) float32 (meaningful only where `both`)."""
+    W = both.shape[1]
+    left, right, _ = overlap_extents(both)
+    x = torch.arange(W, dtype=torch.float32, device=both.device)[None, :]
+    l = left.to(torch.float32)[:, None]
+    r = right.to(torch.float32)[:, None]
+    s = seam.to(torch.float32)[:, None]
+    wl = 1.0 - 0.5 * (x - l) / (s - l).clamp(min=1.0)
+    wr = 0.5 * (r - x) / (r - s).clamp(min=1.0)
+    return torch.where(x <= s, wl, wr).clamp(0.0, 1.0)

@@ -2,15 +2,17 @@
 (`imagestitch_tpu.stream.StreamStitcher`).
 
 - `calibrate(images)` runs the N-view registration of the `Stitcher`
-  (`pipeline.register_views`: one batched detect, all pairs matched,
-  rotations along the spanning tree, bundle adjustment) on one frame set,
-  warps it (one warp launch), drops the views outside the tree's largest
-  component from the masks, applies gain compensation, resolves DP seams
-  along i -> i+1 (not along the tree, as the JAX package's stream does)
-  and freezes the seam masks, the cameras and the warp's inputs.
+  (`pipeline.register_views`: one batched detect at the work scale, all
+  pairs matched, rotations along the spanning tree, bundle adjustment,
+  wave correction) on one frame set, warps it (one warp launch for the
+  warp kernel's projectors), drops the views outside the tree's largest
+  component from the masks, applies exposure compensation, resolves DP or
+  Voronoi seams along i -> i+1 (not along the tree, as the JAX package's
+  stream does) and freezes the seam masks, the cameras and the warp's
+  inputs.
 - `compose(images)` warps a new frame set with the frozen registration
-  (one warp launch, no detection), applies gain compensation and blends
-  with the frozen seam masks, then crops on the host.
+  (one warp launch, no detection), applies exposure compensation and
+  blends with the frozen seam masks, then crops on the host.
 
 Runs on `device` (default: the CUDA card; with no card it raises).
 """
@@ -21,12 +23,11 @@ import numpy as np
 import torch
 
 from imagestitch_tpu_torch.config import PipelineConfig
-from imagestitch_tpu_torch.ops.cuda_warp import warp_batched
 from imagestitch_tpu_torch.pipeline import (
     _apply_exposure, _blend_resolved, _crop_valid, _generator,
-    _pano_canvas_shape, check_supported, register_views, resolve_device,
-    set_full_precision, warp_inputs, warp_scale)
-from imagestitch_tpu_torch.seam.dp import dp_seam_pair
+    _pano_canvas_shape, _seam_pair, check_supported, register_views,
+    resolve_device, set_full_precision, warp_inputs, warp_scale,
+    warp_views)
 from imagestitch_tpu_torch.utils.log import StageTimer
 
 
@@ -47,9 +48,9 @@ class StreamStitcher:
 
     def _warp(self, imgs: torch.Tensor):
         f = self._frozen
-        return warp_batched(imgs.contiguous(), f["k_rinvs"], f["scale"],
-                            f["corners"], f["roi_uvs"], f["canvas_hw"],
-                            self.cfg.warp.kind)
+        return warp_views(imgs.contiguous(), f["k_rinvs"], f["scale"],
+                          f["corners"], f["roi_uvs"], f["canvas_hw"],
+                          self.cfg.warp.kind)
 
     def calibrate(self, images, seed: int = 0, draws=None):
         """Register one frame set of N same-size (H, W, 3) uint8 views and
@@ -84,9 +85,8 @@ class StreamStitcher:
             sm = [masks[i] for i in range(n)]
             if cfg.seam.kind != "none":
                 for i in range(n - 1):
-                    sm[i], sm[i + 1], _ = dp_seam_pair(
-                        warped[i], warped[i + 1], sm[i], sm[i + 1], False,
-                        orient=cfg.seam.orient, scale=cfg.seam.dp_scale)
+                    sm[i], sm[i + 1] = _seam_pair(
+                        warped[i], warped[i + 1], sm[i], sm[i + 1], cfg)
             self._frozen["seam_masks"] = torch.stack(sm)
         with timer.stage("blend"):
             pano, valid = _blend_resolved(warped, self._frozen["seam_masks"],

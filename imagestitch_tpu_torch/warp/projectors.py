@@ -3,9 +3,11 @@ each projector maps source pixels to surface coordinates (forward:
 ray = R·K⁻¹·[x, y, 1]) and surface coordinates back to source pixels
 (backward: K·R⁻¹·ray with a perspective divide, valid where z > 0).
 
-The cylindrical, spherical and plane projectors are ported — the kinds the
-warp kernel (`ops.cuda_warp`) carries. `UNPORTED_KINDS` names the JAX
-package's other projectors.
+All eleven kinds of the JAX package: the cylindrical, spherical and
+plane projectors, which the warp kernel (`ops.cuda_warp`) carries, and
+OpenCV's fisheye, stereographic, Mercator, transverse Mercator,
+compressed-rectilinear and Panini projectors, which the pipeline warps
+with the plain `warp.warper.warp_image`, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -15,11 +17,6 @@ import math
 import torch
 
 PI = math.pi
-
-UNPORTED_KINDS = frozenset({
-    "fisheye", "stereographic", "mercator", "transverseMercator",
-    "compressedPlaneA2B1", "compressedPlaneA1.5B1", "paniniA2B1",
-    "paniniA1.5B1"})
 
 
 def k_inverse(K: torch.Tensor) -> torch.Tensor:
@@ -134,8 +131,154 @@ class PlaneProjector(Projector):
         return u / self.scale, v / self.scale, torch.ones_like(u)
 
 
+def _polar_angle(X, Y, Z):
+    """(azimuth atan2(x̂, ẑ), π − acos(ŷ/|r|)) of rays."""
+    norm = torch.sqrt(X * X + Y * Y + Z * Z)
+    w = (Y / norm.clamp(min=1e-12)).clamp(-1.0, 1.0)
+    return torch.atan2(X, Z), PI - torch.acos(w)
+
+
+def _ray_from_polar(u_, v_):
+    sinv = torch.sin(PI - v_)
+    return sinv * torch.sin(u_), torch.cos(PI - v_), sinv * torch.cos(u_)
+
+
+class FisheyeProjector(Projector):
+    """Equidistant fisheye: the polar angle times the azimuth direction."""
+
+    def _surface_from_ray(self, X, Y, Z):
+        u_, v_ = _polar_angle(X, Y, Z)
+        return self.scale * v_ * torch.cos(u_), self.scale * v_ * torch.sin(u_)
+
+    def _ray_from_surface(self, u, v):
+        u = u / self.scale
+        v = v / self.scale
+        return _ray_from_polar(torch.atan2(v, u), torch.sqrt(u * u + v * v))
+
+
+class StereographicProjector(Projector):
+    """Stereographic: r = sin v_ / (1 − cos v_) along the azimuth."""
+
+    def _surface_from_ray(self, X, Y, Z):
+        u_, v_ = _polar_angle(X, Y, Z)
+        r = torch.sin(v_) / (1.0 - torch.cos(v_)).clamp(min=1e-12)
+        return self.scale * r * torch.cos(u_), self.scale * r * torch.sin(u_)
+
+    def _ray_from_surface(self, u, v):
+        u = u / self.scale
+        v = v / self.scale
+        r = torch.sqrt(u * u + v * v)
+        return _ray_from_polar(torch.atan2(v, u),
+                               2.0 * torch.atan(1.0 / r.clamp(min=1e-12)))
+
+
+def _sphere_angles(X, Y, Z):
+    """(azimuth u_, latitude v_ = asin(ŷ/|r|)): the convention of the
+    Mercator, transverse Mercator, compressed-rectilinear and Panini
+    projectors."""
+    norm = torch.sqrt(X * X + Y * Y + Z * Z)
+    return (torch.atan2(X, Z),
+            torch.asin((Y / norm.clamp(min=1e-12)).clamp(-1.0, 1.0)))
+
+
+def _ray_from_angles(u_, v_):
+    cosv = torch.cos(v_)
+    return cosv * torch.sin(u_), torch.sin(v_), cosv * torch.cos(u_)
+
+
+class MercatorProjector(Projector):
+    """u = s·u_, v = s·ln tan(π/4 + v_/2); inverse v_ = atan(sinh v)."""
+
+    def _surface_from_ray(self, X, Y, Z):
+        u_, v_ = _sphere_angles(X, Y, Z)
+        return (self.scale * u_,
+                self.scale * torch.log(torch.tan(PI / 4 + v_ / 2)))
+
+    def _ray_from_surface(self, u, v):
+        u = u / self.scale
+        v = v / self.scale
+        return _ray_from_angles(u, torch.atan(torch.sinh(v)))
+
+
+class TransverseMercatorProjector(Projector):
+    """b = cos v_·sin u_; u = (s/2)·ln((1+b)/(1−b)), v = s·atan2(tan v_,
+    cos u_); inverse v_ = asin(sin v / cosh u), u_ = atan2(sinh u, cos v)."""
+
+    def _surface_from_ray(self, X, Y, Z):
+        u_, v_ = _sphere_angles(X, Y, Z)
+        b = (torch.cos(v_) * torch.sin(u_)).clamp(-1.0 + 1e-7, 1.0 - 1e-7)
+        return (self.scale / 2 * torch.log((1.0 + b) / (1.0 - b)),
+                self.scale * torch.atan2(torch.tan(v_), torch.cos(u_)))
+
+    def _ray_from_surface(self, u, v):
+        u = u / self.scale
+        v = v / self.scale
+        v_ = torch.asin((torch.sin(v) / torch.cosh(u)).clamp(-1.0, 1.0))
+        u_ = torch.atan2(torch.sinh(u), torch.cos(v))
+        return _ray_from_angles(u_, v_)
+
+
+class CompressedRectilinearProjector(Projector):
+    """u = s·a·tan(u_/a), v = s·b·tan v_ / cos u_ (kinds
+    compressedPlaneA{2,1.5}B1)."""
+
+    a: float = 1.0
+    b: float = 1.0
+
+    def _surface_from_ray(self, X, Y, Z):
+        u_, v_ = _sphere_angles(X, Y, Z)
+        return (self.scale * self.a * torch.tan(u_ / self.a),
+                self.scale * self.b * torch.tan(v_) / torch.cos(u_))
+
+    def _ray_from_surface(self, u, v):
+        u = u / self.scale
+        v = v / self.scale
+        u_ = self.a * torch.atan(u / self.a)
+        return _ray_from_angles(u_, torch.atan(v * torch.cos(u_) / self.b))
+
+
+class PaniniProjector(Projector):
+    """u = s·a·tan(u_/a), v = s·b·(a·tan(u_/a))·tan v_ / sin u_, with the
+    sin u_ → 0 limit b·tan v_ (kinds paniniA{2,1.5}B1)."""
+
+    a: float = 1.0
+    b: float = 1.0
+
+    def _surface_from_ray(self, X, Y, Z):
+        u_, v_ = _sphere_angles(X, Y, Z)
+        tg = self.a * torch.tan(u_ / self.a)
+        sinu = torch.sin(u_)
+        small = sinu.abs() < 1e-7
+        one = torch.ones_like(sinu)
+        ratio = torch.where(small, one, tg / torch.where(small, one, sinu))
+        return self.scale * tg, self.scale * self.b * ratio * torch.tan(v_)
+
+    def _ray_from_surface(self, u, v):
+        u = u / self.scale
+        v = v / self.scale
+        lam = self.a * torch.atan(u / self.a)
+        small = lam.abs() < 1e-7
+        denom = self.b * self.a * torch.tan(
+            torch.where(small, torch.ones_like(lam), lam) / self.a)
+        t = torch.where(small, v / self.b, v * torch.sin(lam) / denom)
+        return _ray_from_angles(lam, torch.atan(t))
+
+
+def _with_ab(cls, a, b):
+    return type(f"{cls.__name__}_a{a}b{b}", (cls,), {"a": a, "b": b})
+
+
 PROJECTORS = {
     "cylindrical": CylindricalProjector,
     "spherical": SphericalProjector,
     "plane": PlaneProjector,
+    "fisheye": FisheyeProjector,
+    "stereographic": StereographicProjector,
+    "mercator": MercatorProjector,
+    "transverseMercator": TransverseMercatorProjector,
+    "compressedPlaneA2B1": _with_ab(CompressedRectilinearProjector, 2.0, 1.0),
+    "compressedPlaneA1.5B1": _with_ab(
+        CompressedRectilinearProjector, 1.5, 1.0),
+    "paniniA2B1": _with_ab(PaniniProjector, 2.0, 1.0),
+    "paniniA1.5B1": _with_ab(PaniniProjector, 1.5, 1.0),
 }

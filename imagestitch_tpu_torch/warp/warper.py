@@ -3,7 +3,9 @@ gather into a static canvas (`imagestitch_tpu.warp.warper`).
 
 `warp_batched_plain` is the plain version of the warp kernel
 (`ops.cuda_warp.warp_batched`): the JAX package's XLA path, image by image,
-with the kernel's signature. `warp_image` warps one image through it.
+with the kernel's signature. `warp_image` warps one image on any device
+with any projector, bilinearly or by nearest neighbour, optionally through
+a source mask; `warp_point` forward-maps points.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from imagestitch_tpu_torch.ops.image import remap_bilinear
+from imagestitch_tpu_torch.ops.image import remap_bilinear, remap_nearest
 from imagestitch_tpu_torch.warp.projectors import PROJECTORS
 
 
@@ -22,6 +24,7 @@ class WarpResult:
     image: torch.Tensor   # (Hc, Wc, C) float32
     mask: torch.Tensor    # (Hc, Wc) bool
     corner: torch.Tensor  # (2,) int32 — (x, y) of the canvas origin
+    size: torch.Tensor    # (2,) int32 — (w, h) ROI extent, <= the canvas
 
 
 def _linspace0(stop: float, num: int, device) -> torch.Tensor:
@@ -62,17 +65,21 @@ def image_scale(scale, i: int):
 def warp_batched_plain(imgs: torch.Tensor, k_rinvs: torch.Tensor, scale,
                        corners: torch.Tensor, roi_uvs: torch.Tensor,
                        canvas_hw: tuple[int, int], kind: str = "cylindrical",
-                       src_sizes=None):
+                       src_sizes=None, masks: torch.Tensor | None = None,
+                       interp: str = "linear"):
     """Warp (N, H, W, C) images into N (Hc, Wc) canvases: per canvas pixel
     (u, v) = pixel + corner, the backward map at the image's surface scale
     (`scale`: one for every image, or (N,) one each), the ROI-rectangle
     test (±1 px), the in-image test on each image's true size and a
-    clamped bilinear sample. Returns (out (N, Hc, Wc, C), valid (N, Hc, Wc)
+    clamped bilinear sample (`interp="nearest"`: the nearest tap). With
+    `masks` (N, H, W), a pixel is valid only where the nearest source
+    mask pixel is set. Returns (out (N, Hc, Wc, C), valid (N, Hc, Wc)
     bool)."""
     N, H, W = imgs.shape[:3]
     Hc, Wc = canvas_hw
     dev = imgs.device
-    outs, masks = [], []
+    remap = remap_bilinear if interp == "linear" else remap_nearest
+    outs, valids = [], []
     for i in range(N):
         h, w = ((H, W) if src_sizes is None
                 else (int(src_sizes[i][0]), int(src_sizes[i][1])))
@@ -89,31 +96,52 @@ def warp_batched_plain(imgs: torch.Tensor, k_rinvs: torch.Tensor, scale,
         u0, v0, u1, v1 = roi_uvs[i].to(torch.float32)
         in_roi = ((dxg >= u0 - 1.0) & (dxg <= u1 + 1.0)
                   & (dyg >= v0 - 1.0) & (dyg <= v1 + 1.0))
-        out, samp_ok = remap_bilinear(imgs[i, :h, :w], xm, ym)
+        out, samp_ok = remap(imgs[i, :h, :w].to(torch.float32), xm, ym)
         valid = ray_ok & samp_ok & in_roi
+        if masks is not None:
+            m_out, _ = remap_nearest(masks[i, :h, :w].to(torch.float32),
+                                     xm, ym)
+            valid = valid & (m_out > 0.5)
         vmask = valid[..., None] if out.ndim == 3 else valid
         outs.append(torch.where(vmask, out, torch.zeros_like(out)))
-        masks.append(valid)
-    return torch.stack(outs), torch.stack(masks)
+        valids.append(valid)
+    return torch.stack(outs), torch.stack(valids)
 
 
 def warp_image(img: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
                scale, canvas_hw: tuple[int, int], kind: str = "cylindrical",
+               mask: torch.Tensor | None = None, interp: str = "linear",
                corner: torch.Tensor | None = None) -> WarpResult:
-    """Warp one source image (H, W[, C]) onto the projection surface with
-    bilinear sampling (the plain path, on any device)."""
+    """Warp one source image (H, W[, C]) onto the projection surface, the
+    plain path on any device: bilinear (`interp="linear"`) or nearest
+    sampling, and with `mask` (H, W) only where the nearest source mask
+    pixel is set. `corner` (x, y) places the canvas origin (default: the
+    floor of the image's own ROI corner)."""
+    Hc, Wc = canvas_hw
     H, W = img.shape[:2]
     proj = PROJECTORS[kind](K, R, scale)
     u0, v0, u1, v1 = _roi_bounds(proj, H, W)
     if corner is None:
         corner = torch.stack([torch.floor(u0), torch.floor(v0)])
     corner = corner.to(torch.int32)
+    size_w = (torch.ceil(u1) - torch.floor(u0) + 1).to(torch.int32)
+    size_h = (torch.ceil(v1) - torch.floor(v0) + 1).to(torch.int32)
+    size = torch.stack([size_w.clamp(max=Wc), size_h.clamp(max=Hc)])
     x = img.to(torch.float32)
     squeeze = x.ndim == 2
     if squeeze:
         x = x[..., None]
     out, valid = warp_batched_plain(
         x[None], proj.k_rinv[None], scale, corner[None],
-        torch.stack([u0, v0, u1, v1])[None], canvas_hw, kind)
+        torch.stack([u0, v0, u1, v1])[None], canvas_hw, kind,
+        masks=None if mask is None else mask[None], interp=interp)
     out = out[0, ..., 0] if squeeze else out[0]
-    return WarpResult(image=out, mask=valid[0], corner=corner)
+    return WarpResult(image=out, mask=valid[0], corner=corner, size=size)
+
+
+def warp_point(xy: torch.Tensor, K: torch.Tensor, R: torch.Tensor, scale,
+               kind: str = "cylindrical") -> torch.Tensor:
+    """Forward-map points (..., 2) onto the projection surface (OpenCV
+    RotationWarper::warpPoint)."""
+    u, v = PROJECTORS[kind](K, R, scale).forward(xy[..., 0], xy[..., 1])
+    return torch.stack([u, v], dim=-1)

@@ -35,6 +35,7 @@ from imagestitch_tpu.parallel import stitch_pairs_batched as jbatched  # noqa
 from imagestitch_tpu.utils.io import synthetic_pair  # noqa: E402
 import imagestitch_tpu_torch as tist  # noqa: E402
 from imagestitch_tpu_torch.convert import config_from_dict  # noqa: E402
+from imagestitch_tpu_torch import pipeline as tpipe  # noqa: E402
 from imagestitch_tpu_torch.parallel import batch as tbatch  # noqa: E402
 from imagestitch_tpu_torch.pipeline import stitch_pair_impl  # noqa: E402
 
@@ -83,8 +84,8 @@ def runs():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tbatch, "detect_batched",
                    counting("detect", tbatch.detect_batched))
-        mp.setattr(tbatch, "warp_batched",
-                   counting("warp", tbatch.warp_batched))
+        mp.setattr(tpipe, "warp_batched",
+                   counting("warp", tpipe.warp_batched))
         pt, vt, ct, mt = tist.stitch_pairs_batched(
             pairs, _tcfg(TINY), device="cpu", draws=draws)
     return dict(pairs=pairs, draws=draws, calls=calls,

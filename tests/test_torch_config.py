@@ -68,22 +68,35 @@ def test_config_validation_matches():
 
 
 def test_unported_kinds_raise_with_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tcfg.WarpConfig(kind="fisheye")
+    """Only the host seams (item 15) and SCANS mode (item 16) are
+    refused; the item-13 kinds this test once refused (the fisheye warp,
+    the ramp blend) are accepted, and run in
+    tests/test_torch_projectors.py and tests/test_torch_options_pipeline.py."""
+    assert tcfg.WarpConfig(kind="fisheye").kind == "fisheye"
     with pytest.raises(AssertionError):
         tcfg.WarpConfig(kind="nope")
     from imagestitch_tpu_torch.pipeline import check_supported
     for cfg, item in [
             (tcfg.PipelineConfig(seam=tcfg.SeamConfig(kind="graphcut")), 15),
-            (tcfg.PipelineConfig(blend=tcfg.BlendConfig(kind="ramp")), 13),
+            (tcfg.PipelineConfig(seam=tcfg.SeamConfig(
+                full_components=True)), 15),
             (tcfg.PipelineConfig(mode="scans"), 16)]:
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             check_supported(cfg)
-    check_supported(tcfg.PipelineConfig())
-    check_supported(tcfg.PipelineConfig(
-        detector=tcfg.DetectorConfig(kind="sift")))
-    check_supported(tcfg.PipelineConfig(
-        blend=tcfg.BlendConfig(kind="multiband")))
+    for cfg in [
+            tcfg.PipelineConfig(),
+            tcfg.PipelineConfig(detector=tcfg.DetectorConfig(kind="sift")),
+            tcfg.PipelineConfig(blend=tcfg.BlendConfig(kind="multiband")),
+            tcfg.PipelineConfig(blend=tcfg.BlendConfig(kind="ramp")),
+            tcfg.PipelineConfig(warp=tcfg.WarpConfig(kind="fisheye")),
+            tcfg.PipelineConfig(
+                detector=tcfg.DetectorConfig(wta_k=4),
+                camera=tcfg.CameraConfig(ba_kind="reproj",
+                                         wave_correct=True),
+                exposure=tcfg.ExposureConfig(kind="channels_blocks"),
+                seam=tcfg.SeamConfig(kind="voronoi"), work_megapix=0.5,
+                compose_megapix=0.2, crop="interior")]:
+        check_supported(cfg)
 
 
 def _python_files():

@@ -109,6 +109,27 @@ def test_detect_levels_batch_of_views_equals_one_view_launches(cuda):
                 assert torch.equal(m[b], m1[0])
 
 
+def test_detect_levels_work_scale_batch_matches_plain(cuda):
+    """The detailed path's K1 launch: four views at the 0.6-megapixel work
+    scale of 1080x1920 (581x1033) and their five 1.3 levels in one launch,
+    each level against the plain version (FAST/NMS equal, Harris within
+    1e-4·max|Harris|, the blur within 1e-3)."""
+    from imagestitch_tpu_torch.ops.pyramid import build_pyramid
+    rng = np.random.default_rng(581)
+    img = torch.as_tensor(rng.uniform(0, 255, (4, 581, 1033)).astype(
+        np.float32), device=cuda)
+    pyr = [lv.contiguous() for lv in build_pyramid(img, 5, 1.3)]
+    n0 = cuda_detect.launch_count
+    maps = cuda_detect.detect_maps_levels(pyr, 20.0)
+    assert cuda_detect.launch_count == n0 + 1
+    for lv, k in zip(pyr, maps):
+        p = cuda_detect.detect_maps_plain(lv, 20.0)
+        assert torch.equal(k[0], p[0])
+        assert float((k[1] - p[1]).abs().max()) <= \
+            1e-4 * float(p[1].abs().max())
+        assert float((k[2] - p[2]).abs().max()) <= 1e-3
+
+
 def test_detect_levels_wrapper_launches_only_the_kernel(cuda):
     """A detect_maps_levels call over a 5-level pyramid runs exactly one
     CUDA kernel, the detector maps, and no copy or fill."""
@@ -323,8 +344,11 @@ def _yaw_warp_args(dev, n, h, w, c, canvas=None, shift=(0, 0),
     dict(n=2, h=1080, w=1920, c=3, canvas=(1458, 4032), focal=1728.0),
     dict(n=8, h=1080, w=1920, c=3, canvas=(1458, 16704), focal=1728.0,
          spread=1.9),
+    dict(n=4, h=1080, w=1920, c=3, canvas=(1458, 8256), focal=1728.0,
+         spread=0.27, kind="spherical"),
 ], ids=["c1", "n1", "n3", "wc167", "c1_wc171_spherical", "outside_roi",
-        "outside_roi_wc701_plane", "main_1080p", "chain8_1080p"])
+        "outside_roi_wc701_plane", "main_1080p", "chain8_1080p",
+        "detailed4_spherical"])
 def test_warp_kernel_cases_match_plain(cuda, case):
     """The warp kernel against its plain version: one channel, one and
     three images, canvases whose width is no multiple of 4 (unaligned
@@ -640,3 +664,66 @@ def test_stream_on_card_matches_cpu_and_counts_launches(cuda):
     assert pc.shape == pp.shape == composed.shape
     assert np.abs(pc.astype(float) - pp.astype(float)).mean() < 1.0
     assert np.abs(pc.astype(float) - composed.astype(float)).mean() < 1.0
+
+
+@pytest.mark.parametrize("case,launches", [("ramp_colorgrad", (2, 0, 1)),
+                                           ("paniniA2B1", (2, 0, 0))])
+def test_item13_pair_on_card_matches_cpu_and_counts_launches(cuda, case,
+                                                             launches):
+    """The 192x256 rotation pair with the ramp blend and the colour-
+    gradient DP seam, and with the Panini projector, on the card and on the
+    CPU with the same RANSAC draws: equal counts, focal within 1e-3, pano
+    within 1 intensity on average. The Panini stitch warps with the plain
+    warp on the card, as the JAX package does for the kinds its warp
+    kernel does not carry: the warp kernel launches 0 times."""
+    from imagestitch_tpu_torch import BlendConfig, SeamConfig
+    a, b, _, _ = synthetic_rotation_pair(192, 256)
+    g = torch.Generator().manual_seed(1)
+    draws = (torch.rand((2048, 4), generator=g),
+             torch.rand((256, 4), generator=g))
+    cfg = (PipelineConfig(seam=SeamConfig(kind="dp_colorgrad"),
+                          blend=BlendConfig(kind="ramp"))
+           if case == "ramp_colorgrad"
+           else PipelineConfig(warp=WarpConfig(kind=case)))
+    c0 = _counts()
+    pc, mc = stitch_pair(a, b, cfg, device=cuda, draws=draws)
+    assert tuple(y - x for x, y in zip(c0, _counts())) == launches
+    pp, mp = stitch_pair(a, b, cfg, device="cpu", draws=draws)
+    for k in ("kpts1", "kpts2", "num_matches", "num_inliers", "h_valid"):
+        assert mc[k] == mp[k], k
+    assert abs(mc["focal"] - mp["focal"]) <= 1e-3 * mp["focal"]
+    assert pc.shape == pp.shape
+    assert np.abs(pc.astype(float) - pp.astype(float)).mean() < 1.0
+
+
+def test_detailed_stitcher_on_card_matches_cpu_and_counts_launches(cuda):
+    """OpenCV stitching_detailed's defaults (work_megapix, horizontal wave
+    correction, spherical warp, GAIN_BLOCKS, DP colour seam, multi-band)
+    through Stitcher on a panning camera's three 160x224 views, on the
+    card and on the CPU with the same draws (work_megapix 0.02: the work
+    views are 120x167): one detector-maps launch for the three work views,
+    one warp launch; equal reachable, focal within 1e-3, panos within 1
+    intensity on average."""
+    from imagestitch_tpu_torch import (BlendConfig, CameraConfig,
+                                       ExposureConfig, SeamConfig, Stitcher)
+    from imagestitch_tpu_torch.matching.matcher import pair_list
+    from imagestitch_tpu_torch.utils.io import synthetic_pan_sequence
+    views = synthetic_pan_sequence(3)
+    g = torch.Generator().manual_seed(5)
+    draws = {p: (torch.rand((2048, 4), generator=g),
+                 torch.rand((256, 4), generator=g)) for p in pair_list(3)}
+    cfg = PipelineConfig(
+        work_megapix=0.02,
+        camera=CameraConfig(wave_correct=True, wave_kind="horiz"),
+        warp=WarpConfig(kind="spherical"),
+        exposure=ExposureConfig(kind="gain_blocks"),
+        seam=SeamConfig(kind="dp_color"),
+        blend=BlendConfig(kind="multiband"))
+    c0 = _counts()
+    pc, mc = Stitcher(cfg, device=cuda).stitch(views, draws=draws)
+    assert tuple(y - x for x, y in zip(c0, _counts())) == (1, 0, 1)
+    pp, mp = Stitcher(cfg, device="cpu").stitch(views, draws=draws)
+    assert mc["reachable"] == mp["reachable"] == [True] * 3
+    assert abs(mc["focal"] - mp["focal"]) <= 1e-3 * mp["focal"]
+    assert pc.shape == pp.shape
+    assert np.abs(pc.astype(float) - pp.astype(float)).mean() < 1.0

@@ -379,8 +379,6 @@ def test_stitcher_one_and_two_views():
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"compose_megapix": 0.5}, 13),
-    ({"work_megapix": 0.5}, 13),
     ({"mode": "scans"}, 16),
     ({"seam": tist.SeamConfig(kind="graphcut")}, 15),
     ({"seam": tist.SeamConfig(full_components=True)}, 15),
@@ -392,9 +390,33 @@ def test_unported_options_raise_with_roadmap_item(change, item):
         tist.Stitcher(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tist.stitch(views, cfg, device="cpu")
-    if "compose_megapix" not in change:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tist.stitch_chain(views, cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        tist.stitch_chain(views, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [{"compose_megapix": 0.02},
+                                    {"work_megapix": 0.02}])
+def test_item13_options_run(change):
+    """The two options this file once refused (ROADMAP item 13) run on the
+    CPU: every view reachable, and compose_megapix shrinks the pano by
+    its scale, work_megapix leaves its size (registration only). Held
+    against JAX in tests/test_torch_options_pipeline.py."""
+    views = pan_sequence(3)
+    cfg = tist.PipelineConfig()
+    draws = all_pair_draws(0, 3, 2048)
+    p0, _ = tist.Stitcher(cfg, device="cpu").stitch(views, draws=draws)
+    p, m = tist.Stitcher(cfg.replace(**change), device="cpu").stitch(
+        views, draws=draws)
+    assert all(m["reachable"]) and p.std() > 20
+    if "compose_megapix" in change:
+        s = np.sqrt(0.02e6 / (160 * 224))
+        assert abs(p.shape[1] - s * p0.shape[1]) < 0.05 * p0.shape[1]
+    else:
+        assert abs(p.shape[1] - p0.shape[1]) < 0.05 * p0.shape[1]
+    if "work_megapix" in change:
+        p2, _ = tist.stitch_chain(views, cfg.replace(**change),
+                                  device="cpu")
+        assert p2.std() > 20
 
 
 def test_entry_points_raise_without_a_card():

@@ -185,16 +185,33 @@ def test_shuffled_compose_valid_matches_jax(runs):
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"work_megapix": 0.5}, 13),
     ({"mode": "scans"}, 16),
-    ({"camera": tist.CameraConfig(wave_correct=True)}, 13),
     ({"seam": tist.SeamConfig(kind="graphcut")}, 15),
-    ({"seam": tist.SeamConfig(kind="voronoi")}, 13),
 ])
 def test_unported_options_raise_with_roadmap_item(change, item):
     cfg = tist.PipelineConfig().replace(**change)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         tist.StreamStitcher(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    {"work_megapix": 0.02},
+    {"camera": tist.CameraConfig(wave_correct=True)},
+    {"seam": tist.SeamConfig(kind="voronoi")},
+])
+def test_item13_options_run(change):
+    """The three options this file once refused (ROADMAP item 13) run on
+    the CPU: calibrate registers every view of a panning rig, compose of
+    the calibration frames gives the calibration pano. Held against JAX
+    in tests/test_torch_options_pipeline.py."""
+    views = pan_sequence(3)
+    ss = tist.StreamStitcher(tist.PipelineConfig().replace(**change),
+                             device="cpu")
+    pano, m = ss.calibrate(views, draws=all_pair_draws(0, 3, 2048))
+    assert m["reachable"] == [True] * 3 and pano.std() > 20
+    same = ss.compose(views)
+    assert same.shape == pano.shape
+    assert np.abs(same.astype(np.float64) - pano).mean() < 1.0
 
 
 def test_stream_needs_calibrate_and_a_card():
