@@ -126,7 +126,8 @@ result line is printed):
                 Stitcher on a 3-view 192x256 panning sequence.
 19. detailed_path — Stitcher with OpenCV stitching_detailed's defaults
                 (work_megapix 0.6, horizontal wave correction, spherical
-                warp, GAIN_BLOCKS, DP colour seam, multi-band) on a panning
+                warp, GAIN_BLOCKS, the graph-cut colour seam at
+                seam_megapix 0.1, multi-band) on a panning
                 camera's four 1080x1920 views: every view reachable, focal
                 within 5% of 1728 px, the pano's width within 5% of the
                 pan's spherical extent, launches per stitch (detector maps
@@ -140,12 +141,29 @@ result line is printed):
                 pairs: h_valid, focal / offset / width, launches (detector
                 maps 2, warp 1 per pair), the median of 5 warm stitches of
                 each, the rotation pair's stage split.
-21. cli       — `imagestitch_tpu_torch.cli demo --size 1080x1920` on the
+21. host_seam_reference — the host seams card against CPU with the same
+                draws on the 192x256 rotation pair (graph cut COLOR and
+                COLOR_GRAD, the full DP, the graph cut at seam_megapix
+                0.1) and a 3-view 192x256 panning Stitcher (graph cut):
+                the panos within the reference phase's limits, and the
+                split of the card's own canvases equal to the same split
+                on the CPU (equal seam masks).
+22. graphcut_path — stitch_pair with the graph-cut seam on bench.py's
+                1080p 40%-overlap pair at seam_megapix 0.1 and at full
+                resolution: launches (detector maps 2, warp 1), the median
+                of 5 warm stitches, the split's readback / seam / blend ms
+                and the bytes read back.
+23. scans_reference — SCANS mode card against CPU at 192x256: the pair,
+                the spliced chain, the Stitcher and StreamStitcher.calibrate.
+24. scans_path — stitch_pair(mode="scans") on the same 1080p pair (median
+                of 5, launches 2 and 1, the stage split) and a scans
+                Stitcher on three translated 480x640 views.
+25. cli       — `imagestitch_tpu_torch.cli demo --size 1080x1920` on the
                 card writes a PNG wider than 1920.
-22. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
+26. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
                 of the 1080p SIFT plane stitch, and the device's busy share
                 of one stitch of each (torch.profiler, after the timing).
-23. kernel_times — K1's and K3's work for one stitch, the kernels alone from
+27. kernel_times — K1's and K3's work for one stitch, the kernels alone from
                 torch.profiler kernel events (median of 20 rounds) with L2
                 flushed by a 256 MB write and warm; K1 also as ten
                 one-level launches, as the chain's one launch for 8 views,
@@ -154,7 +172,7 @@ result line is printed):
                 also by kernel name and by octave, and the CUDA kernels the
                 trace shows per stitch (8). Last, since once the profiler
                 has traced the card, later launches cost the host more.
-24. kernels   — one line {"kernels": [...]}: launches on the main path
+28. kernels   — one line {"kernels": [...]}: launches on the main path
                 (`launches`) and on each path (`launches_by_path`, counted
                 over the path's run), error against the plain version,
                 kernel / plain / library ms and the least time the card
@@ -1597,9 +1615,10 @@ def phase_batched_path(state):
           "card": state["name"], "smi": state["smi"]})
 
 
-# OpenCV stitching_detailed's defaults, the graph-cut seam replaced by the
-# DP colour seam; the ramp pair's seam and blend; the projectors K2 does
-# not carry (the plain warp serves them, as in the JAX package)
+# OpenCV stitching_detailed's defaults (its graph-cut colour seam at
+# seam_megapix 0.1 among them); the ramp pair's seam and blend; the
+# projectors K2 does not carry (the plain warp serves them, as in the JAX
+# package)
 EXTENDED_KINDS = ("fisheye", "stereographic", "mercator",
                   "transverseMercator", "compressedPlaneA2B1",
                   "compressedPlaneA1.5B1", "paniniA2B1", "paniniA1.5B1")
@@ -1615,7 +1634,7 @@ def _detailed_config(work_megapix=0.6):
         camera=CameraConfig(wave_correct=True, wave_kind="horiz"),
         warp=WarpConfig(kind="spherical"),
         exposure=ExposureConfig(kind="gain_blocks"),
-        seam=SeamConfig(kind="dp_color"),
+        seam=SeamConfig(kind="graphcut", seam_megapix=0.1),
         blend=BlendConfig(kind="multiband"))
 
 
@@ -1752,8 +1771,9 @@ def phase_options_reference(state):
 
 def phase_detailed_path(state):
     """Stitcher with OpenCV stitching_detailed's defaults (work_megapix
-    0.6, horizontal wave correction, spherical warp, GAIN_BLOCKS, multi-
-    band; the DP colour seam for the graph cut) on a panning camera's
+    0.6, horizontal wave correction, spherical warp, GAIN_BLOCKS, the
+    graph-cut colour seam at seam_megapix 0.1, multi-band) on a panning
+    camera's
     four 1080x1920 views (focal 1728 px, 10 degrees apart): every view
     reachable, the focal within 5% of 1728, the pano's width within 5% of
     the pan's spherical extent (1728 x (30 degrees + 2 atan(960/1728))),
@@ -1889,6 +1909,291 @@ def phase_ramp_path(state):
           "card": state["name"], "smi": state["smi"]})
 
 
+def _affine_draws(pairs, seed, p=2):
+    """Injected draws of the affine matcher: (2048, p) per pair, one
+    pass."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return {q: (torch.rand((2048, p), generator=g), None) for q in pairs}
+
+
+def _hold_split(name, warped, masks, cfg):
+    """The host-seam split of the card's canvases against the same split
+    of the same canvases moved to the CPU: the device's bbox, marginals,
+    decimation, quantization and splice must give equal seam masks, and
+    the blends agree within 1e-2 and on the valid mask."""
+    import numpy as np
+    from imagestitch_tpu_torch import pipeline as P
+    pc, vc, sc = P._host_seam_blend(warped, masks, cfg)
+    pp, vp, sp = P._host_seam_blend(warped.cpu(), masks.cpu(), cfg)
+    sc = sc.cpu().numpy() if hasattr(sc, "cpu") else np.asarray(sc)
+    sp = sp.numpy() if hasattr(sp, "numpy") else np.asarray(sp)
+    check(np.array_equal(sc, sp), f"{name}: seam masks differ on the "
+          f"same canvases ({int((sc != sp).sum())} px)")
+    vc = vc.cpu().numpy()
+    check(np.array_equal(vc, vp.numpy()), f"{name}: valid masks differ")
+    err = float((pc.cpu() - pp).abs().max())
+    check(err <= 1e-2, f"{name}: blend card vs CPU max error {err}")
+    return {"view0_px": int(sc[0].sum()), "blend_max_abs_err": err}
+
+
+def phase_host_seam_reference(state):
+    """The host seams card against CPU with the same draws: on the
+    192x256 rotation pair the graph cut (COLOR, COLOR_GRAD), the full DP
+    and the graph cut at seam_megapix 0.1; a 3-view 192x256 panning
+    Stitcher with the graph cut. Each case: `stitch_pair` (or the
+    Stitcher) on the card and on the CPU within `_card_vs_cpu`'s limits
+    (keypoints equal, focal 1e-3, pano mean 1.0), and the split
+    (`_host_seam_blend`) of the card's own canvases against the same
+    split on the CPU (`_hold_split`: equal seam masks)."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import (PipelineConfig, SeamConfig, Stitcher,
+                                       pipeline as P)
+    from imagestitch_tpu_torch.utils.io import (synthetic_pan_sequence,
+                                                synthetic_rotation_pair)
+    cases = {"graphcut": SeamConfig(kind="graphcut"),
+             "graphcut_colorgrad": SeamConfig(kind="graphcut_colorgrad"),
+             "dp_full": SeamConfig(kind="dp_color", full_components=True),
+             "graphcut_megapix": SeamConfig(kind="graphcut",
+                                            seam_megapix=0.1)}
+    img1, img2, _, _ = synthetic_rotation_pair(192, 256)
+    g = torch.Generator().manual_seed(1)
+    draws = (torch.rand((2048, 4), generator=g),
+             torch.rand((256, 4), generator=g))
+    total, out = {}, {}
+    for name, seam in cases.items():
+        cfg = PipelineConfig(seam=seam)
+        _reset_counts()
+        out[name] = _option_pair(name, cfg, 1, total)
+        a = torch.as_tensor(img1, device="cuda")
+        b = torch.as_tensor(img2, device="cuda")
+        warped, masks, _, _ = P.stitch_pair_front_impl(a, b, cfg, draws)
+        out[name]["split"] = _hold_split(name, warped, masks, cfg)
+    views = synthetic_pan_sequence(3, 192, 256)
+    cfg = PipelineConfig(seam=SeamConfig(kind="graphcut"))
+    sdraws = _pan_draws(3, 6)
+    _reset_counts()
+    pc, mc = Stitcher(cfg).stitch(views, draws=sdraws)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    _add_counts(total, launches)
+    check(launches["detect_maps"] == 1 and launches["warp_batched"] == 1,
+          f"stitcher3: launches {launches}")
+    pp, mp = Stitcher(cfg, device="cpu").stitch(views, draws=sdraws)
+    check(mc["reachable"] == mp["reachable"] == [True] * 3,
+          f"stitcher3: reachable {mc['reachable']} vs {mp['reachable']}")
+    rel = abs(mc["focal"] - mp["focal"]) / mp["focal"]
+    check(rel < 1e-3, f"stitcher3: focal {mc['focal']} vs {mp['focal']}")
+    check(pc.shape == pp.shape, f"stitcher3: pano {pc.shape} vs {pp.shape}")
+    diff = float(np.abs(pc.astype(np.float64) - pp).mean())
+    check(diff < 1.0, f"stitcher3: pano mean abs diff {diff}")
+    out["stitcher3_graphcut"] = {"pano": list(pc.shape), "focal_rel": rel,
+                                 "pano_mean_abs_diff": diff,
+                                 "launches": launches}
+    _record_path(state, "host_seam_reference", total)
+    emit({"phase": "host_seam_reference", "cases": out,
+          "card": state["name"], "smi": state["smi"]})
+
+
+def phase_graphcut_path(state):
+    """stitch_pair with the graph-cut colour seam on synthetic_pair(1080,
+    1920, overlap=0.4, seed=0), at seam_megapix 0.1 and at full
+    resolution (bench.py's two graph-cut runs): h_valid, the pano's width
+    within 10% of 1920 + shift, launches (K1 2, K2 1 per pair), the
+    median of 5 warm stitches, and the split's readback / seam / blend
+    ms (median of 3 front + `_host_seam_blend` runs with timings) with
+    the bytes read back (full resolution: the overlap's uint8 crop)."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import (PipelineConfig, SeamConfig,
+                                       stitch_pair, pipeline as P)
+    from imagestitch_tpu_torch.utils.io import synthetic_pair
+    i1, i2, shift = synthetic_pair(1080, 1920, overlap=0.4, seed=0)
+    runs = {"seam_megapix_0.1": SeamConfig(kind="graphcut",
+                                           seam_megapix=0.1),
+            "full_resolution": SeamConfig(kind="graphcut",
+                                          seam_megapix=-1.0)}
+    out, total = {}, {}
+    for name, seam in runs.items():
+        cfg = PipelineConfig(seam=seam)
+        _reset_counts()
+        pano, m = stitch_pair(i1, i2, cfg)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        _add_counts(total, launches)
+        want = {"detect_maps": 2, "sift_octave_maps": 0, "warp_batched": 1,
+                "slab_probe": 0}
+        check(launches == want, f"{name}: launches {launches}, want {want}")
+        check(m["h_valid"], f"{name}: h_valid false")
+        check(pano.dtype == np.uint8 and pano.std() > 20, f"{name}: pano")
+        check(abs(pano.shape[1] - (1920 + shift)) < 0.1 * (1920 + shift),
+              f"{name}: pano width {pano.shape[1]} vs {1920 + shift}")
+        walls = _warm_walls(lambda cfg=cfg: stitch_pair(i1, i2, cfg))
+        a = torch.as_tensor(i1, device="cuda")
+        b = torch.as_tensor(i2, device="cuda")
+        timings, fronts = {}, []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            warped, masks, _, _ = P.stitch_pair_front_impl(a, b, cfg)
+            torch.cuda.synchronize()
+            fronts.append((time.perf_counter() - t0) * 1e3)
+            P._host_seam_blend(warped, masks, cfg, timings=timings)
+        del warped, masks
+        out[name] = {
+            "launches": launches, "pano": list(pano.shape),
+            "focal": m["focal"], "wall_ms_median": walls[2],
+            "wall_ms": walls, "front_ms": float(np.median(fronts)),
+            "split_ms": {k: float(np.median(timings[k])) for k in (
+                "readback_ms", "seam_ms", "blend_ms")},
+            "readback_bytes": timings["readback_bytes"][0],
+            "entry_stages_ms": {k: m[k] for k in ("front",
+                                                  "host_seam_blend")}}
+    _record_path(state, "graphcut_path", total)
+    emit({"phase": "graphcut_path", "runs": out, "card": state["name"],
+          "smi": state["smi"]})
+
+
+def _scans_config(**kw):
+    from imagestitch_tpu_torch import PipelineConfig
+    return PipelineConfig(mode="scans", **kw)
+
+
+def phase_scans_reference(state):
+    """SCANS mode card against CPU with the same draws at 192x256: the
+    similarity pair (`stitch_pair`), a 3-view translated chain with the
+    skip pairs (`stitch_chain`, chain_splice), the Stitcher (affine bundle
+    adjustment) and `StreamStitcher.calibrate` on the same views: equal
+    reachable, the panos' shapes equal and within 1.0 on average, and
+    launches (the pair K1 2, K2 1; the others K1 1, K2 1)."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import (StreamStitcher, Stitcher,
+                                       stitch_chain, stitch_pair)
+    from imagestitch_tpu_torch.matching.matcher import pair_list
+    from imagestitch_tpu_torch.utils.io import (synthetic_affine_pair,
+                                                synthetic_sequence)
+    a, b, _ = synthetic_affine_pair(192, 256, angle_deg=6.0, scale=1.04,
+                                    seed=5)
+    views = list(synthetic_sequence(3, 192, 256, overlap=0.5, seed=50)[0])
+    chain_pairs = [(0, 1), (1, 2), (0, 2)]
+    cfg = _scans_config()
+    ccfg = _scans_config(chain_splice=True)
+    runs = {
+        "pair": (lambda dev, d: stitch_pair(a, b, cfg, device=dev,
+                                            draws=d[(0, 1)]),
+                 [(0, 1)], 2),
+        "chain_splice": (lambda dev, d: stitch_chain(views, ccfg,
+                                                     device=dev, draws=d),
+                         chain_pairs, 1),
+        "stitcher": (lambda dev, d: Stitcher(cfg, dev).stitch(views,
+                                                              draws=d),
+                     pair_list(3), 1),
+        "stream_calibrate": (lambda dev, d: StreamStitcher(
+            cfg, dev).calibrate(views, draws=d), pair_list(3), 1),
+    }
+    out, total = {}, {}
+    for k, (name, (fn, pairs, k1)) in enumerate(runs.items()):
+        d = _affine_draws(pairs, 10 + k)
+        _reset_counts()
+        pc, mc = fn("cuda", d)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        _add_counts(total, launches)
+        check(launches["detect_maps"] == k1
+              and launches["warp_batched"] == 1,
+              f"scans {name}: launches {launches}")
+        pp, mp = fn("cpu", d)
+        for key in ("reachable", "h_valid"):
+            if key in mc:
+                check(mc[key] == mp[key], f"scans {name}: {key} "
+                      f"{mc[key]} vs {mp[key]}")
+        check(pc.shape == pp.shape,
+              f"scans {name}: pano {pc.shape} vs {pp.shape}")
+        diff = float(np.abs(pc.astype(np.float64) - pp).mean())
+        check(diff < 1.0, f"scans {name}: pano mean abs diff {diff}")
+        check(pc.std() > 20, f"scans {name}: flat pano")
+        out[name] = {"pano": list(pc.shape), "pano_mean_abs_diff": diff,
+                     "launches": launches}
+    _record_path(state, "scans_reference", total)
+    emit({"phase": "scans_reference", "cases": out, "card": state["name"],
+          "smi": state["smi"]})
+
+
+def phase_scans_path(state):
+    """SCANS mode at full size: stitch_pair(mode="scans") on
+    synthetic_pair(1080, 1920, overlap=0.4, seed=0) (bench.py's scans
+    pair): h_valid, the pano's width within 10% of 1920 + shift, launches
+    (K1 2, K2 1), the median of 5 warm stitches and the stage split, and
+    K2 on that launch's own inputs (the plane kind with affine cameras)
+    against its plain version, timed; and a scans Stitcher on three
+    translated 480x640 views: every view reachable, the pano wider than
+    640 + 1.9 shifts, launches (K1 1, K2 1)."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import Stitcher, stitch_pair
+    from imagestitch_tpu_torch import pipeline as P
+    from imagestitch_tpu_torch.utils.io import (synthetic_pair,
+                                                synthetic_sequence)
+    i1, i2, shift = synthetic_pair(1080, 1920, overlap=0.4, seed=0)
+    cfg = _scans_config()
+    seen = []
+    inner = P.warp_batched
+
+    def spy(*args, **kw):
+        seen.append(args)
+        return inner(*args, **kw)
+
+    _reset_counts()
+    P.warp_batched = spy
+    try:
+        pano, m = stitch_pair(i1, i2, cfg)
+    finally:
+        P.warp_batched = inner
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    want = {"detect_maps": 2, "sift_octave_maps": 0, "warp_batched": 1,
+            "slab_probe": 0}
+    check(launches == want, f"scans pair: launches {launches}")
+    check(m["h_valid"] and m["focal"] == 1.0, f"scans pair: {m['h_valid']}")
+    check(pano.dtype == np.uint8 and pano.std() > 20, "scans pair: pano")
+    check(abs(pano.shape[1] - (1920 + shift)) < 0.1 * (1920 + shift),
+          f"scans pano width {pano.shape[1]} vs {1920 + shift}")
+    check(len(seen) == 1, f"scans pair: {len(seen)} warp kernel calls")
+    imgs, k_rinvs, scale, corners, roi_uvs, canvas, kind = seen[0][:7]
+    check(kind == "plane", f"scans pair: K2 kind {kind}")
+    k2 = _hold_k2("scans_plane_1080p", imgs, k_rinvs, scale, corners,
+                  roi_uvs, canvas, kind)
+    state["k2"]["scans_plane"] = {k: k2[k] for k in (
+        "canvas", "max_abs_err", "ms", "warm_ms", "plain_ms", "library_ms",
+        "bound_ms", "bound_by")}
+    del imgs, seen
+    walls = _warm_walls(lambda: stitch_pair(i1, i2, cfg))
+    stages = _stage_breakdown(i1, i2, cfg, 3, trace=False)
+    seq, sshift = synthetic_sequence(3, 480, 640, overlap=0.5, seed=7)
+    _reset_counts()
+    sp, sm = Stitcher(cfg).stitch(list(seq))
+    torch.cuda.synchronize()
+    slaunch = _read_counts()
+    check(slaunch["detect_maps"] == 1 and slaunch["warp_batched"] == 1,
+          f"scans Stitcher: launches {slaunch}")
+    check(sm["reachable"] == [True] * 3, f"scans Stitcher: {sm['reachable']}")
+    check(sp.shape[1] > 640 + 1.9 * sshift and sp.std() > 20,
+          f"scans Stitcher pano {sp.shape} (shift {sshift})")
+    total = dict(launches)
+    _add_counts(total, slaunch)
+    _record_path(state, "scans_path", total)
+    emit({"phase": "scans_path", "launches": launches,
+          "pano": list(pano.shape), "inliers": m["num_inliers"],
+          "wall_ms_median": walls[2], "wall_ms": walls, "stages": stages,
+          "k2_plane_affine": k2,
+          "stitcher3_480p": {"pano": list(sp.shape), "launches": slaunch,
+                             "stages_ms": {k: sm[k] for k in STAGES
+                                           if k in sm}},
+          "card": state["name"], "smi": state["smi"]})
+
+
 def phase_cli(state):
     """python -m imagestitch_tpu_torch.cli demo --size 1080x1920 on the
     card: a PNG wider than 1920, launches of one stitch_pair (detector maps
@@ -1986,7 +2291,9 @@ def phase_kernel_times(state):
 def _stage_breakdown(img1, img2, cfg, n_warm: int, trace: bool = True):
     """Wall ms of each stage of one stitch (synchronized between stages,
     median of `n_warm` runs after a first one), and with `trace` the
-    device's busy share of one stitch from a torch.profiler trace."""
+    device's busy share of one stitch from a torch.profiler trace. The
+    front runs with SCANS mode normalized and the seam with `cfg` as
+    given, as `stitch_pair_impl` does."""
     import numpy as np
     import torch
     from imagestitch_tpu_torch import pipeline as P
@@ -1994,6 +2301,7 @@ def _stage_breakdown(img1, img2, cfg, n_warm: int, trace: bool = True):
     from imagestitch_tpu_torch.matching.matcher import match_pair
     from imagestitch_tpu_torch.ops.image import rgb_to_gray
     H, W = img1.shape[:2]
+    fcfg = P._normalize_scans(cfg)
 
     def one(marks):
         def mark(name):
@@ -2005,27 +2313,18 @@ def _stage_breakdown(img1, img2, cfg, n_warm: int, trace: bool = True):
         a = torch.as_tensor(img1, device="cuda").float()
         b = torch.as_tensor(img2, device="cuda").float()
         mark("upload")
-        f1 = detect_features(rgb_to_gray(a), cfg.detector)
-        f2 = detect_features(rgb_to_gray(b), cfg.detector)
+        f1 = detect_features(rgb_to_gray(a), fcfg.detector)
+        f2 = detect_features(rgb_to_gray(b), fcfg.detector)
         mark("detect")
-        mi = match_pair(f1, f2, 0, 1, cfg.matcher, cfg.ransac,
+        mi = match_pair(f1, f2, 0, 1, fcfg.matcher, fcfg.ransac,
                         generator=gen)
         mark("match_ransac")
-        sizes = torch.tensor([[H, W]] * 2, dtype=torch.int32,
-                             device="cuda")
-        cams = P.estimate_cameras(mi.H[None], mi.h_valid[None], sizes)
-        pairs = mi.pairs.long()
-        cams = P.bundle_adjust(
-            cams, f1.xy[pairs[:, 0]][None], f2.xy[pairs[:, 1]][None],
-            (mi.inliers & mi.valid)[None],
-            torch.zeros(1, dtype=torch.int64, device="cuda"),
-            torch.ones(1, dtype=torch.int64, device="cuda"),
-            (mi.confidence > 1.0)[None], cfg.camera.ba_iters)
+        cams = P.pair_cameras(f1, f2, mi, ((H, W), (H, W)), fcfg)
         mark("cameras_ba")
         scale = P.warp_scale(cams)
-        canvas = P._pano_canvas_shape((H, W), 2, cfg)
+        canvas = P._pano_canvas_shape((H, W), 2, fcfg)
         warped, masks, _, _, _ = P._warp_all_shared(
-            torch.stack([a, b]), cams, scale, canvas, cfg)
+            torch.stack([a, b]), cams, scale, canvas, fcfg)
         mark("warp")
         warped = P._apply_exposure(warped, masks, cfg)
         mark("exposure")
@@ -2096,7 +2395,11 @@ def main() -> int:
               ("batched_path", phase_batched_path),
               ("options_reference", phase_options_reference),
               ("detailed_path", phase_detailed_path),
-              ("ramp_path", phase_ramp_path), ("cli", phase_cli),
+              ("ramp_path", phase_ramp_path),
+              ("host_seam_reference", phase_host_seam_reference),
+              ("graphcut_path", phase_graphcut_path),
+              ("scans_reference", phase_scans_reference),
+              ("scans_path", phase_scans_path), ("cli", phase_cli),
               ("stages", phase_stages), ("kernel_times", phase_kernel_times)]
     for name, fn in phases:
         try:

@@ -4,9 +4,10 @@
     python -m imagestitch_tpu_torch.cli demo -o pano.png     # synthetic pair
 
 Two images go through `stitch_pair`, more through `stitch`. The options
-and their choices are the JAX package's, plus `--device` (default: the
-CUDA card; without one it raises unless `--device cpu`). Options that are
-not ported raise NotImplementedError naming their ROADMAP item.
+and their choices are the JAX package's (the host seams `--seam graphcut`,
+`graphcut_colorgrad`, `--full_seam_components` and `--seam_megapix`, and
+`--mode scans`, among them), plus `--device` (default: the CUDA card;
+without one it raises unless `--device cpu`).
 """
 
 from __future__ import annotations

@@ -4,12 +4,15 @@ BundleAdjusterRay: per-camera focal and Rodrigues rotation) and the
 reprojection adjuster (OpenCV's BundleAdjusterReproj: focal, ppx, ppy,
 aspect and rotation), both refined by Levenberg–Marquardt over all inlier
 correspondences with the same damping schedule and stopping rule as the
-JAX package (the Jacobian from forward-mode autodiff); and OpenCV's
-waveCorrect.
+JAX package (the Jacobian from forward-mode autodiff); OpenCV's
+waveCorrect; and SCANS mode's joint affine adjustment
+(`bundle_adjust_affine`, one least-squares solve on the host in NumPy, as
+in the JAX package).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch.func import jacfwd
 
@@ -176,6 +179,93 @@ def bundle_adjust(cameras: CameraParams, src_pts, dst_pts, pt_valid,
     fn = {"ray": bundle_adjust_ray, "reproj": bundle_adjust_reproj}[kind]
     return fn(cameras, src_pts, dst_pts, pt_valid, pair_from, pair_to,
               pair_valid, iters)
+
+
+def bundle_adjust_affine(Gs, src_pts, dst_pts, pt_valid,
+                         pair_from, pair_to, pair_valid,
+                         anchor: int = 0, partial: bool = True):
+    """Joint affine bundle adjustment (OpenCV BundleAdjusterAffinePartial /
+    BundleAdjusterAffine, the SCANS-mode refiners), host NumPy.
+
+    The residual of a correspondence (x in image u, y in image v) under
+    global transforms is G_u·[x,1] − G_v·[y,1], linear in every
+    transform's entries, so the joint optimum is one least-squares solve
+    of the normal equations (4 unknowns per camera for the similarity
+    model, 6 for the full affine), with the anchor camera's transform
+    pinned as the gauge and a 1e-6 prior toward the chained transforms
+    (which keeps unconstrained cameras in place).
+
+    Gs: (N, 3, 3) chained initial transforms; src_pts/dst_pts: (P, T, 2);
+    pt_valid: (P, T) bool; pair_from/to: (P,); pair_valid: (P,) bool, all
+    host arrays. Returns the refined (N, 3, 3) float32."""
+    Gs = np.asarray(Gs, np.float64)
+    N = Gs.shape[0]
+    k = 4 if partial else 6
+
+    def params_of(G):
+        if partial:
+            return np.array([G[0, 0], G[1, 0], G[0, 2], G[1, 2]])
+        return np.array([G[0, 0], G[0, 1], G[0, 2],
+                         G[1, 0], G[1, 1], G[1, 2]])
+
+    def G_of(p):
+        if partial:
+            a, b, tx, ty = p
+            return np.array([[a, -b, tx], [b, a, ty], [0, 0, 1.0]])
+        return np.array([[p[0], p[1], p[2]], [p[3], p[4], p[5]],
+                         [0, 0, 1.0]])
+
+    def rows(pts):
+        """Coefficient rows (T, 2, k): the residual's two rows as
+        functions of a camera's params, at its own points."""
+        x, y = pts[:, 0], pts[:, 1]
+        one = np.ones_like(x)
+        zero = np.zeros_like(x)
+        if partial:
+            r1 = np.stack([x, -y, one, zero], 1)
+            r2 = np.stack([y, x, zero, one], 1)
+        else:
+            r1 = np.stack([x, y, one, zero, zero, zero], 1)
+            r2 = np.stack([zero, zero, zero, x, y, one], 1)
+        return np.stack([r1, r2], 1)
+
+    M = np.zeros((k * N, k * N))
+    for p in range(src_pts.shape[0]):
+        if not bool(pair_valid[p]):
+            continue
+        w = np.asarray(pt_valid[p], np.float64)
+        if w.sum() < 2:
+            continue
+        u, v = int(pair_from[p]), int(pair_to[p])
+        Cu = rows(np.asarray(src_pts[p], np.float64))
+        Cv = rows(np.asarray(dst_pts[p], np.float64))
+        Cu_w = Cu * w[:, None, None]
+        uu = np.einsum("trk,trl->kl", Cu_w, Cu)
+        uv = np.einsum("trk,trl->kl", Cu_w, Cv)
+        vv = np.einsum("trk,trl->kl", Cv * w[:, None, None], Cv)
+        su, sv = slice(k * u, k * u + k), slice(k * v, k * v + k)
+        M[su, su] += uu
+        M[sv, sv] += vv
+        M[su, sv] -= uv
+        M[sv, su] -= uv.T
+
+    p0 = np.concatenate([params_of(Gs[i]) for i in range(N)])
+    lam = 1e-6 * max(np.trace(M) / max(k * N, 1), 1.0)
+    M += lam * np.eye(k * N)
+    b = lam * p0.copy()
+
+    # gauge: the anchor's (known) params move to the right-hand side
+    free = np.ones(k * N, bool)
+    free[k * anchor:k * anchor + k] = False
+    pa = params_of(Gs[anchor])
+    b_free = b[free] - M[np.ix_(free, ~free)] @ pa
+    sol = np.linalg.solve(M[np.ix_(free, free)], b_free)
+
+    p_all = np.empty(k * N)
+    p_all[~free] = pa
+    p_all[free] = sol
+    out = np.stack([G_of(p_all[k * i:k * i + k]) for i in range(N)])
+    return out.astype(np.float32)
 
 
 def wave_correct(R: torch.Tensor, kind: str = "horiz") -> torch.Tensor:

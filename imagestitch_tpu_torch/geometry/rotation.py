@@ -8,7 +8,10 @@ principal points at the image centres.
 - `max_spanning_tree` and `estimate_cameras_host`: any pair topology, on
   the host in NumPy (Kruskal over the inlier counts, the largest
   component, rotations chained along the tree from its min-max-depth
-  center).
+  center);
+- `affine_cameras` and `estimate_affine_host`: SCANS mode's cameras,
+  global affine transforms (OpenCV's AffineBasedEstimator) chained along
+  the same tree on the host.
 """
 
 from __future__ import annotations
@@ -212,6 +215,56 @@ def estimate_cameras_host(Hs: np.ndarray, pair_from: np.ndarray,
                     torch.as_tensor(R.astype(np.float32), device=dev),
                     torch.as_tensor(np.asarray(img_sizes, np.float64)
                                     .astype(np.float32), device=dev))
+    if return_tree:
+        return cams, edges, reachable
+    return cams
+
+
+def affine_cameras(Gs) -> CameraParams:
+    """CameraParams carrying global affine transforms G_i (image-i pixels
+    -> canvas): K = I (focal 1, principal point 0) and R = G_i. The plane
+    projector's backward map K·R⁻¹·[u, v, 1] at scale 1 is then the affine
+    warp G_i⁻¹·[u, v, 1], so the warp kernel serves SCANS mode as it is.
+    On the device of `Gs` (a tensor), else on the CPU."""
+    Gs = torch.as_tensor(Gs, dtype=torch.float32)
+    n = Gs.shape[0]
+    dev = Gs.device
+
+    def full(v):
+        return torch.full((n,), v, dtype=torch.float32, device=dev)
+
+    return CameraParams(focal=full(1.0), aspect=full(1.0), ppx=full(0.0),
+                        ppy=full(0.0), R=Gs,
+                        t=torch.zeros((n, 3), dtype=torch.float32,
+                                      device=dev))
+
+
+def estimate_affine_host(Hs: np.ndarray, pair_from: np.ndarray,
+                         pair_to: np.ndarray, num_inliers: np.ndarray,
+                         pair_valid: np.ndarray, num_images: int,
+                         return_tree: bool = False, device=None):
+    """Affine camera recovery for any pair topology, on the host (the
+    SCANS family's AffineBasedEstimator). Hs (P, 3, 3): H[p] maps
+    pair_from[p]'s raw pixel coordinates into pair_to[p]'s, last row
+    (0, 0, 1). Global transforms chain G_v = G_u·H_uv⁻¹ in float64 along
+    `max_spanning_tree` of the valid pairs from its center (G = I), whose
+    frame is the canvas. Returns `affine_cameras` on `device` (default:
+    the CPU), and with `return_tree` also (edges, reachable)."""
+    Hs = np.asarray(Hs, np.float64)
+    valid_idx = np.nonzero(np.asarray(pair_valid, bool))[0]
+    edges, _, reachable = max_spanning_tree(
+        num_images, np.asarray(pair_from)[valid_idx],
+        np.asarray(pair_to)[valid_idx], np.asarray(num_inliers)[valid_idx])
+    Gmap = {}
+    for p in valid_idx:
+        a, b = int(pair_from[p]), int(pair_to[p])
+        Gmap[(a, b)] = Hs[p]
+        Gmap[(b, a)] = np.linalg.inv(Hs[p])
+    G = np.tile(np.eye(3, dtype=np.float64), (num_images, 1, 1))
+    for u, v in edges:
+        G[v] = G[u] @ np.linalg.inv(Gmap[(u, v)])
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    cams = affine_cameras(torch.as_tensor(G.astype(np.float32), device=dev))
     if return_tree:
         return cams, edges, reachable
     return cams

@@ -1,11 +1,15 @@
-"""Pairwise matching + per-pair homography (`imagestitch_tpu.matching.
-matcher`, homography motion): exact Hamming (ORB) or squared-L2 (SIFT)
-2-NN in both directions with
-Lowe's ratio test, mutual-duplicate suppression, compaction to
-`max_matches` by ascending distance, center-normalized RANSAC, Brown–Lowe
-confidence and the second RANSAC pass on the inliers. `match_all` runs it
-over the pairs of a batch of images.
-"""
+"""Pairwise matching + per-pair motion (`imagestitch_tpu.matching.
+matcher`): exact Hamming (ORB) or squared-L2 (SIFT) 2-NN in both
+directions with Lowe's ratio test, mutual-duplicate suppression,
+compaction to `max_matches` by ascending distance, then by
+`MatcherConfig.motion`
+- "homography": center-normalized RANSAC, Brown–Lowe confidence (zeroed
+  above 3) and the second RANSAC pass on the inliers;
+- "affine_partial" / "affine" (SCANS mode, OpenCV's
+  AffineBestOf2NearestMatcher): RANSAC similarity or affine on the raw
+  keypoint coordinates, one pass with its least-squares refit, and the
+  confidence kept above 3.
+`match_all` runs it over the pairs of a batch of images."""
 
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import torch
 
 from imagestitch_tpu_torch.config import MatcherConfig, RansacConfig
 from imagestitch_tpu_torch.features.orb import top_k_stable
+from imagestitch_tpu_torch.geometry.affine import find_affine
 from imagestitch_tpu_torch.geometry.ransac import find_homography
 from imagestitch_tpu_torch.matching.hamming import (hamming_distance_matrix,
                                                     l2_distance_matrix)
@@ -83,44 +88,54 @@ def match_pair(f1: ImageFeatures, f2: ImageFeatures, src_idx: int = 0,
                dst_idx: int = 1, cfg: MatcherConfig = MatcherConfig(),
                rcfg: RansacConfig = RansacConfig(), draws=None,
                generator: torch.Generator | None = None) -> MatchesInfo:
-    """Descriptors -> RANSAC H -> confidence for one pair; H maps f1's
-    center-normalized points into f2's.
+    """Descriptors -> RANSAC motion -> confidence for one pair. H maps
+    f1's points into f2's: center-normalized for the homography, raw
+    pixel coordinates for the affine motions.
 
-    `draws`: optional (u_first (num_hypotheses, 4), u_refit (256, 4))
-    uniform draws for the two RANSAC passes; without them both come from
+    `draws`: optional (u_first, u_refit) uniform draws of the RANSAC
+    passes: (num_hypotheses, 4) and (256, 4) for the homography; for the
+    affine motions u_first is (num_hypotheses, 2) (partial) or (.., 3)
+    and u_refit is not used (one pass). Without them the draws come from
     `generator`."""
-    if cfg.motion != "homography":
-        raise NotImplementedError(
-            f"matcher motion {cfg.motion!r} is not ported yet "
-            "(ROADMAP Queue A, item 16)")
     dev = f1.xy.device
     pairs, dist, valid = match_pair_descriptors(f1, f2, cfg)
-    c1 = 0.5 * torch.flip(f1.img_size.to(torch.float32), [0])
-    c2 = 0.5 * torch.flip(f2.img_size.to(torch.float32), [0])
-    src = f1.xy[pairs[:, 0].long()] - c1
-    dst = f2.xy[pairs[:, 1].long()] - c2
+    homography = cfg.motion == "homography"
+    src = f1.xy[pairs[:, 0].long()]
+    dst = f2.xy[pairs[:, 1].long()]
+    if homography:
+        src = src - 0.5 * torch.flip(f1.img_size.to(torch.float32), [0])
+        dst = dst - 0.5 * torch.flip(f2.img_size.to(torch.float32), [0])
 
     u_first, u_refit = draws if draws is not None else (None, None)
     num_matches = valid.to(torch.int32).sum()
     enough = num_matches >= cfg.num_matches_thresh1
-    res = find_homography(src, dst, valid, rcfg, u=u_first,
-                          generator=generator)
+    if homography:
+        res = find_homography(src, dst, valid, rcfg, u=u_first,
+                              generator=generator)
+    else:
+        res = find_affine(src, dst, valid, rcfg,
+                          partial=cfg.motion == "affine_partial",
+                          u=u_first, generator=generator)
     h_ok = res.ok & enough
 
     conf = res.num_inliers.to(torch.float32) / (
         8.0 + 0.3 * num_matches.to(torch.float32))
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    conf = torch.where(conf > 3.0, zero, conf)
+    if homography:
+        # "too close to be believable": OpenCV's affine matcher keeps it
+        conf = torch.where(conf > 3.0, zero, conf)
     conf = torch.where(h_ok, conf, zero)
 
-    # second pass on the first pass's inliers: replaces H, keeps the first
-    # pass's inlier mask, count and confidence
-    rcfg_refit = dataclasses.replace(
-        rcfg, num_hypotheses=min(REFIT_HYPOTHESES, rcfg.num_hypotheses))
-    refit = find_homography(src, dst, res.inliers & valid, rcfg_refit,
-                            u=u_refit, generator=generator)
-    do_refit = (res.num_inliers >= cfg.num_matches_thresh2) & refit.ok
-    H = torch.where(do_refit, refit.H, res.H)
+    H = res.H
+    if homography:
+        # second pass on the first pass's inliers: replaces H, keeps the
+        # first pass's inlier mask, count and confidence
+        rcfg_refit = dataclasses.replace(
+            rcfg, num_hypotheses=min(REFIT_HYPOTHESES, rcfg.num_hypotheses))
+        refit = find_homography(src, dst, res.inliers & valid, rcfg_refit,
+                                u=u_refit, generator=generator)
+        do_refit = (res.num_inliers >= cfg.num_matches_thresh2) & refit.ok
+        H = torch.where(do_refit, refit.H, res.H)
 
     eye = torch.eye(3, dtype=torch.float32, device=dev)
     return MatchesInfo(

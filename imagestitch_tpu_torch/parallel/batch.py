@@ -30,9 +30,9 @@ from imagestitch_tpu_torch.features import detect_batched
 from imagestitch_tpu_torch.matching.matcher import match_pairs
 from imagestitch_tpu_torch.ops.image import rgb_to_gray
 from imagestitch_tpu_torch.pipeline import (
-    _apply_exposure, _generator, _megapix_scale, _pano_canvas_shape,
-    _seam_and_blend, _work_grays, check_supported, pair_cameras, pair_metrics,
-    resolve_device, set_full_precision, warp_inputs, warp_scale, warp_views)
+    _apply_exposure, _generator, _megapix_scale, _normalize_scans, _pano_canvas_shape, _refuse_host_seam, _seam_and_blend,
+    _work_grays, pair_cameras, pair_metrics, resolve_device,
+    set_full_precision, warp_inputs, warp_scale, warp_views)
 from imagestitch_tpu_torch.types import index
 
 
@@ -52,7 +52,7 @@ def stitch_pairs_batched(pairs, config: PipelineConfig | None = None,
     if cfg.seam.orient == "auto":
         cfg = cfg.replace(seam=dataclasses.replace(cfg.seam,
                                                    orient="vertical"))
-    check_supported(cfg)
+    _refuse_host_seam(cfg)
     dev = resolve_device(device)
     set_full_precision()
     x = torch.as_tensor(np.asarray(pairs) if not isinstance(
@@ -68,21 +68,24 @@ def stitch_pairs_batched_impl(pairs: torch.Tensor, cfg: PipelineConfig,
                               generator: torch.Generator | None = None,
                               timer=None):
     """(B, 2, H, W, 3) float32 pairs on one device -> (panos, valids,
-    corners, metrics), with `cfg` taken as given (no orient resolution).
-    `timer`: an optional `utils.log.StageTimer` that times detect, match,
+    corners, metrics), with `cfg` taken as given (no orient resolution):
+    the front of each pair (detect, match, cameras, warp) with SCANS mode
+    normalized, the seam and blend with `cfg` itself, as
+    `stitch_pair_impl` does. `timer`: an optional `utils.log.StageTimer` that times detect, match,
     cameras (with the bundle adjustment), warp, exposure and seam_blend."""
     def stage(name):
         return timer.stage(name) if timer else contextlib.nullcontext()
 
+    fcfg = _normalize_scans(cfg)
     B, _, H, W = pairs.shape[:4]
     views = pairs.reshape((2 * B,) + tuple(pairs.shape[2:])).contiguous()
     ids = [(2 * b, 2 * b + 1) for b in range(B)]
     ws = _megapix_scale(cfg.work_megapix, (H, W))
     with stage("detect"):
         feats = detect_batched(_work_grays(rgb_to_gray(views), (H, W), ws),
-                               cfg.detector)
+                               fcfg.detector)
     with stage("match"):
-        mis = match_pairs(feats, ids, cfg.matcher, cfg.ransac,
+        mis = match_pairs(feats, ids, fcfg.matcher, fcfg.ransac,
                           None if draws is None
                           else {p: draws[b] for b, p in enumerate(ids)},
                           generator)
@@ -92,19 +95,20 @@ def stitch_pairs_batched_impl(pairs: torch.Tensor, cfg: PipelineConfig,
     with stage("cameras"):
         for b, (i, j) in enumerate(ids):
             f1, f2 = index(feats, i), index(feats, j)
-            c = pair_cameras(f1, f2, mis[b], ((H, W), (H, W)), cfg, ws)
+            c = pair_cameras(f1, f2, mis[b], ((H, W), (H, W)), fcfg, ws)
             s = warp_scale(c)
             fs.append((f1, f2))
             cams.append(c)
             scales.append(s)
-            inputs.append(warp_inputs(c, s, (H, W), 2, canvas_hw, cfg))
+            inputs.append(warp_inputs(c, s, (H, W), 2, canvas_hw, fcfg))
     with stage("warp"):
         corners = torch.stack([inp[1] for inp in inputs])
         warped, masks = warp_views(
             views, torch.cat([inp[0] for inp in inputs]),
             torch.stack(scales).reshape(B).repeat_interleave(2),
             corners.repeat_interleave(2, dim=0),
-            torch.cat([inp[2] for inp in inputs]), canvas_hw, cfg.warp.kind)
+            torch.cat([inp[2] for inp in inputs]), canvas_hw,
+            fcfg.warp.kind)
 
     panos, valids, metrics = [], [], []
     with stage("exposure"):

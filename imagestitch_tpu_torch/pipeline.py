@@ -11,6 +11,15 @@ channels, per block) -> DP, Voronoi or no seams -> 20x20 seam dilate +
 feather or multi-band blend, or the seam-anchored ramp of a pair -> bbox
 or interior crop.
 
+The host seams (`SeamConfig` kinds "graphcut" / "graphcut_colorgrad" and
+`full_components=True`) split the stitch around a host solve, as the JAX
+package does: the front runs on the device, the seam inputs are read back
+(decimated on the device with `seam_megapix`; for a graph-cut pair only
+the overlap's uint8 crop), the seams resolve in NumPy and the native
+solvers, and the blend runs on the device again. SCANS mode
+(`mode="scans"`) registers with affine motions on raw coordinates and
+warps with affine cameras through the plane projector.
+
 Entry points, each running on the CUDA card unless the caller names
 another device (with device=None and no card they raise):
 - `stitch_pair(img1, img2, config=None, seed=0, device=None)`: two images;
@@ -19,12 +28,11 @@ another device (with device=None and no card they raise):
 - `Stitcher(config).stitch(images)` and `stitch(images)`: N views of any
   sizes and pair topology (all pairs, a spanning tree of the confident
   ones, the largest component composed).
-The host seams (graph cut, full DP components) and SCANS mode are not
-ported yet: they raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 
@@ -42,15 +50,20 @@ from imagestitch_tpu_torch.exposure.gain import (
 from imagestitch_tpu_torch.features import detect as detect_features
 from imagestitch_tpu_torch.features import detect_batched
 from imagestitch_tpu_torch.geometry.autocalib import _masked_median
-from imagestitch_tpu_torch.geometry.bundle import bundle_adjust, wave_correct
+from imagestitch_tpu_torch.geometry.bundle import (bundle_adjust,
+                                                   bundle_adjust_affine,
+                                                   wave_correct)
 from imagestitch_tpu_torch.geometry.rotation import (
-    estimate_cameras, estimate_cameras_host, estimate_cameras_spliced)
+    affine_cameras, estimate_affine_host, estimate_cameras,
+    estimate_cameras_host, estimate_cameras_spliced)
 from imagestitch_tpu_torch.matching.matcher import (match_all, match_pair,
                                                     match_pairs, pair_list)
 from imagestitch_tpu_torch.ops.cuda_warp import KIND_IDS, warp_batched
 from imagestitch_tpu_torch.ops.image import dilate, rgb_to_gray
 from imagestitch_tpu_torch.ops.pyramid import resize_linear_mxu
 from imagestitch_tpu_torch.seam.dp import dp_seam_pair
+from imagestitch_tpu_torch.seam.dp_full import dp_seam_find_full
+from imagestitch_tpu_torch.seam.graphcut import graphcut_seam_pair
 from imagestitch_tpu_torch.seam.voronoi import voronoi_seam_pair
 from imagestitch_tpu_torch.types import CameraParams, stack
 from imagestitch_tpu_torch.utils.crop import autocrop
@@ -78,19 +91,77 @@ def set_full_precision() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def check_supported(cfg: PipelineConfig) -> None:
-    """Raise NotImplementedError for what is not ported yet: SCANS mode
-    (item 16) and the host seams, graph cut and the full DP component
-    machinery (item 15)."""
-    todo = []
-    if cfg.mode != "panorama":
-        todo.append(("mode='scans'", 16))
-    if cfg.seam.kind.startswith("graphcut") or cfg.seam.full_components:
-        todo.append((f"host seam {cfg.seam.kind!r}", 15))
-    if todo:
-        what, item = todo[0]
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP Queue A, item {item})")
+def _normalize_scans(cfg: PipelineConfig) -> PipelineConfig:
+    """SCANS mode implies the affine matcher motion (the similarity unless
+    the configuration names one) and the plane warp, which affine cameras
+    turn into the affine warp (cv2.Stitcher SCANS). A no-op in panorama
+    mode."""
+    if cfg.mode != "scans":
+        return cfg
+    m = cfg.matcher
+    if m.motion == "homography":
+        m = dataclasses.replace(m, motion="affine_partial")
+    return cfg.replace(matcher=m,
+                       warp=dataclasses.replace(cfg.warp, kind="plane"))
+
+
+def _upscale_affine(Gs: torch.Tensor, s: float) -> torch.Tensor:
+    """Work-scale global affines at full resolution: S·G·S⁻¹ with
+    S = diag(s, s, 1)."""
+    S = torch.tensor([[s, 0, 0], [0, s, 0], [0, 0, 1]], dtype=torch.float32,
+                     device=Gs.device)
+    Sinv = torch.tensor([[1 / s, 0, 0], [0, 1 / s, 0], [0, 0, 1]],
+                        dtype=torch.float32, device=Gs.device)
+    return torch.einsum("ab,nbc,cd->nad", S, Gs, Sinv)
+
+
+def _scans_cameras(ms, feats, pairs, keep: np.ndarray, n: int,
+                   cfg: PipelineConfig, ws: float, device):
+    """SCANS-mode cameras of the N-view stitchers: affine transforms
+    chained along the spanning tree (`estimate_affine_host`), the joint
+    affine bundle adjustment over the matched `pairs` anchored at the
+    tree's center (host NumPy), and the work-scale conjugation. Returns
+    (cams, tree_edges, reachable)."""
+    pair_ok = _np(ms.h_valid) & keep
+    cams, tree_edges, reachable = estimate_affine_host(
+        _np(ms.H), _np(ms.src_idx), _np(ms.dst_idx), _np(ms.num_inliers),
+        pair_ok, n, return_tree=True, device=device)
+    if cfg.camera.ba_refine:
+        src_pts, dst_pts = _pair_points(feats, ms, pairs)
+        Gr = bundle_adjust_affine(
+            _np(cams.R), _np(src_pts), _np(dst_pts),
+            _np(ms.inliers & ms.valid), _np(ms.src_idx), _np(ms.dst_idx),
+            pair_ok, anchor=tree_edges[0][0] if tree_edges else 0,
+            partial=cfg.matcher.motion == "affine_partial")
+        cams = cams.replace(R=torch.as_tensor(Gr, device=device))
+    if ws < 1.0:
+        cams = cams.replace(R=_upscale_affine(cams.R, 1.0 / ws))
+    return cams, tree_edges, reachable
+
+
+def _chain_affines(mis, good, mis2, good2, eye):
+    """SCANS-mode chain: G_{i+1} = G_i·H_i⁻¹ (the canvas is image 0's
+    frame); with the skip pairs (`mis2`), a broken link i -> i+1 is
+    bridged by G_{i+1} = G_{i-1}·H2_{i-1}⁻¹. Returns (Gs (N, 3, 3),
+    reachable (N,))."""
+    Gs = [eye]
+    reach = [torch.ones((), dtype=torch.bool, device=eye.device)]
+    for i in range(mis.H.shape[0]):
+        step1 = torch.where(mis.h_valid[i], torch.linalg.inv(mis.H[i]), eye)
+        cand1 = Gs[i] @ step1
+        ok1 = good[i] & reach[i]
+        if mis2 is not None and i >= 1:
+            step2 = torch.where(mis2.h_valid[i - 1],
+                                torch.linalg.inv(mis2.H[i - 1]), eye)
+            cand2 = Gs[i - 1] @ step2
+            ok2 = good2[i - 1] & reach[i - 1]
+            Gs.append(torch.where(ok1, cand1,
+                                  torch.where(ok2, cand2, cand1)))
+            reach.append(ok1 | ok2)
+        else:
+            Gs.append(cand1)
+            reach.append(ok1)
+    return torch.stack(Gs), torch.stack(reach)
 
 
 def _megapix_scale(megapix: float, hw: tuple[int, int]) -> float:
@@ -252,6 +323,7 @@ def _seam_and_blend(images, masks, cfg: PipelineConfig,
             images[0], images[1], masks[0], masks[1],
             use_grad=cfg.seam.kind == "dp_colorgrad", max_overlap_w=max_w)
         return out, valid
+    _refuse_host_seam(cfg)
     seam_masks = [masks[i] for i in range(n)]
     if cfg.seam.kind != "none":
         if edges is None:
@@ -277,14 +349,270 @@ def _seam_pair(img_a, img_b, mask_a, mask_b, cfg: PipelineConfig,
     return a2, b2
 
 
+def _needs_host_seam(cfg: PipelineConfig) -> bool:
+    """The seam kinds that resolve on the host: the graph cut (native BK
+    maxflow or the banded dual solver) and the full DpSeamFinder
+    component machinery (`seam.dp_full`)."""
+    return (cfg.seam.kind.startswith("graphcut")
+            or (cfg.seam.kind.startswith("dp_")
+                and cfg.seam.full_components))
+
+
+def _refuse_host_seam(cfg: PipelineConfig) -> None:
+    """Raise the JAX package's ValueError when a host seam is asked of an
+    entry point that has no host split (`stitch_pairs_batched`, the
+    `_impl` functions)."""
+    if not _needs_host_seam(cfg):
+        return
+    raise ValueError(
+        f"seam kind '{cfg.seam.kind}'"
+        f"{' (full_components)' if cfg.seam.full_components else ''} "
+        "resolves on the host and cannot run inside a jitted stitch "
+        "program; use stitch_pair/stitch_chain/Stitcher (which split "
+        "around the host seam) or an on-device seam kind "
+        "(dp_color/dp_colorgrad/voronoi/none)")
+
+
+def _seam_grid(hw: tuple[int, int], megapix: float):
+    """The nearest-index grids of a `seam_megapix` solve on an (Hc, Wc)
+    canvas: (yi, xi) decimate it to (hs, ws), (yb, xb) bring the masks
+    back; None when the canvas is already small enough."""
+    Hc, Wc = hw
+    if not (megapix > 0 and Hc * Wc > megapix * 1e6):
+        return None
+    s = float(np.sqrt(megapix * 1e6 / (Hc * Wc)))
+    hs = max(int(round(Hc * s)), 16)
+    ws = max(int(round(Wc * s)), 16)
+    yi = np.minimum((np.arange(hs) / s).astype(np.int64), Hc - 1)
+    xi = np.minimum((np.arange(ws) / s).astype(np.int64), Wc - 1)
+    yb = np.minimum((np.arange(Hc) * s).astype(np.int64), hs - 1)
+    xb = np.minimum((np.arange(Wc) * s).astype(np.int64), ws - 1)
+    return yi, xi, yb, xb
+
+
+def _full_res(cfg: PipelineConfig) -> PipelineConfig:
+    return cfg.replace(seam=dataclasses.replace(cfg.seam, seam_megapix=-1.0))
+
+
+def _host_seam_masks(warped, masks, cfg: PipelineConfig, edges=None,
+                     pair_marginals=None, crop_origin=(0, 0)) -> np.ndarray:
+    """Resolve host seams on NumPy (N, H, W, C) canvases and (N, H, W)
+    masks: the graph cut pair by pair along `edges` (the Stitcher's
+    spanning tree; the chain i -> i+1 when None), or the full reference
+    DpSeamFinder over all pairs. With cfg.seam.seam_megapix > 0 the seams
+    resolve on a nearest-index decimation and come back by nearest
+    upscale, bounded by the coverage, with covered pixels that no mask
+    kept handed to the first image that covers them (a seam split
+    partitions the coverage). `pair_marginals` and `crop_origin`: a
+    graph-cut pair's full-canvas column and row marginals and the crop's
+    origin when the canvases are its overlap crop; they are passed in
+    (masks[0], masks[1]) order, whatever the edge. Returns (N, H, W)
+    bool."""
+    n = len(masks)
+    grid = _seam_grid(masks[0].shape[:2], cfg.seam.seam_megapix)
+    if grid is not None:
+        yi, xi, yb, xb = grid
+        m_all = np.asarray(masks)
+        lo = _host_seam_masks(np.asarray(warped)[:, yi][:, :, xi],
+                              m_all[:, yi][:, :, xi], _full_res(cfg),
+                              edges=edges)
+        res = lo[:, yb][:, :, xb] & m_all
+        un = m_all.any(0) & ~res.any(0)
+        for i in range(n):
+            take = un & m_all[i]
+            res[i] |= take
+            un &= ~take
+        return res
+    if cfg.seam.kind.startswith("graphcut"):
+        if edges is None:
+            edges = [(i, i + 1) for i in range(n - 1)]
+        m_list = [np.asarray(masks[i]) for i in range(n)]
+        for u, v in edges:
+            m_list[u], m_list[v] = graphcut_seam_pair(
+                warped[u], warped[v], m_list[u], m_list[v],
+                use_grad=cfg.seam.kind.endswith("colorgrad"),
+                orient_marginals=pair_marginals if n == 2 else None,
+                crop_origin=crop_origin)
+        return np.stack(m_list)
+    return np.stack(dp_seam_find_full(
+        list(warped), [(0, 0)] * n, list(masks),
+        use_grad=cfg.seam.kind == "dp_colorgrad"))
+
+
+def _decimate_for_seam(warped: torch.Tensor, masks: torch.Tensor, yi, xi):
+    """Nearest-index decimation of the canvases on their device, so that
+    only the small seam inputs are read back."""
+    yi = torch.as_tensor(yi, device=warped.device)
+    xi = torch.as_tensor(xi, device=warped.device)
+    return warped[:, yi][:, :, xi], masks[:, yi][:, :, xi]
+
+
+def _blend_lowres_seams(warped, seam_lo, masks, yb, xb,
+                        cfg: PipelineConfig):
+    """Upscale decimated host seam masks (nearest) on the device, bound
+    them by the coverage, hand the unowned covered pixels to the first
+    image that covers them, then blend."""
+    yb = torch.as_tensor(yb, device=masks.device)
+    xb = torch.as_tensor(xb, device=masks.device)
+    res = seam_lo[:, yb][:, :, xb] & masks
+    un = masks.any(dim=0) & ~res.any(dim=0)
+    owned = []
+    for i in range(masks.shape[0]):
+        take = un & masks[i]
+        owned.append(res[i] | take)
+        un = un & ~take
+    return _blend_resolved(warped, torch.stack(owned), masks, cfg)
+
+
+def _first_last(a: torch.Tensor):
+    """Index of the first and one past the last True of a 1-D bool
+    tensor (0 and len when none is set, as argmax gives)."""
+    a8 = a.to(torch.uint8)
+    n = a.shape[0]
+    return torch.argmax(a8), n - torch.argmax(a8.flip(0))
+
+
+def _overlap_bbox_device(m1: torch.Tensor, m2: torch.Tensor):
+    """The pair overlap's bbox and the full-canvas orientation marginals,
+    on the device. Returns (bbox (5,) int64 [y0, x0, y1, x1, nonempty],
+    colm (4, W) and rowm (4, H) float32: per column and per row the pixel
+    counts of (exclusive-1, exclusive-2, mask1, mask2))."""
+    both = m1 & m2
+    y0, y1 = _first_last(both.any(dim=1))
+    x0, x1 = _first_last(both.any(dim=0))
+    bbox = torch.stack([y0, x0, y1, x1, both.any().to(torch.int64)])
+    sets = torch.stack([m1 & ~m2, m2 & ~m1, m1, m2]).to(torch.float32)
+    return bbox, sets.sum(dim=1), sets.sum(dim=2)
+
+
+def _crop_quantize_impl(warped, masks, y0: int, x0: int, hh: int, ww: int):
+    """The seam inputs' crop, quantized to uint8 on the device (round half
+    to even, clip): the reference's seam finders consume uint8-warped
+    images, and the readback shrinks 4x."""
+    w = warped[:, y0:y0 + hh, x0:x0 + ww]
+    m = masks[:, y0:y0 + hh, x0:x0 + ww]
+    return _quantize_u8(w), m
+
+
+def _quantize_u8(w: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(w), 0, 255).to(torch.uint8)
+
+
+def _splice_seam_crop(masks, sm_crop, y0: int, x0: int):
+    """Full-canvas seam masks from a crop's solve: outside the crop the
+    split changes nothing (seams live in the pair's overlap)."""
+    out = masks.clone()
+    out[:, y0:y0 + sm_crop.shape[1], x0:x0 + sm_crop.shape[2]] = sm_crop
+    return out
+
+
+CROP_MARGIN = 64
+CROP_ALIGN = 128
+
+
+def _host_seam_blend(warped: torch.Tensor, masks: torch.Tensor,
+                     cfg: PipelineConfig, edges=None,
+                     timings: dict | None = None):
+    """The host-seam split: resolve the host seams of device canvases and
+    blend on the device. Returns (pano, valid, seam masks).
+
+    - `seam_megapix` > 0: the canvases are decimated on the device, read
+      back, solved at that scale, and the low-resolution masks go back up
+      (`_blend_lowres_seams`); the seam masks returned are those.
+    - A full-resolution graph-cut pair reads back only its overlap's
+      bbox, grown by a 64-px margin and its extent aligned to 128 (toward
+      the origin when clipped), as uint8, with the full-canvas
+      marginals, and splices the solved crop into the masks.
+    - Otherwise the whole canvases come back: uint8-quantized for the
+      graph cut, float32 for the full DP.
+    `timings`, when given, collects wall ms per phase (readback_ms,
+    seam_ms, blend_ms; each a list) and the bytes read back
+    (readback_bytes); it synchronizes the device between phases."""
+    sync = timings is not None and warped.device.type == "cuda"
+
+    def mark(name, t0):
+        if timings is not None:
+            if sync:
+                torch.cuda.synchronize(warped.device)
+            timings.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+        return time.perf_counter()
+
+    def note_bytes(*arrays):
+        if timings is not None:
+            timings.setdefault("readback_bytes", []).append(
+                int(sum(a.nbytes for a in arrays)))
+
+    n, Hc, Wc = masks.shape[:3]
+    t0 = time.perf_counter()
+    grid = _seam_grid((Hc, Wc), cfg.seam.seam_megapix)
+    if grid is not None:
+        yi, xi, yb, xb = grid
+        w_lo, m_lo = _decimate_for_seam(warped, masks, yi, xi)
+        w_lo, m_lo = w_lo.cpu().numpy(), m_lo.cpu().numpy()
+        note_bytes(w_lo, m_lo)
+        t0 = mark("readback_ms", t0)
+        seam_lo = _host_seam_masks(w_lo, m_lo, _full_res(cfg), edges=edges)
+        t0 = mark("seam_ms", t0)
+        pano, valid = _blend_lowres_seams(
+            warped, torch.as_tensor(seam_lo, device=masks.device), masks,
+            yb, xb, cfg)
+        mark("blend_ms", t0)
+        return pano, valid, seam_lo
+    if n == 2 and cfg.seam.kind.startswith("graphcut"):
+        bb, colm, rowm = _overlap_bbox_device(masks[0], masks[1])
+        bb = bb.cpu().numpy()
+        colm, rowm = colm.cpu().numpy(), rowm.cpu().numpy()
+        if bb[4]:
+            y0 = max(int(bb[0]) - CROP_MARGIN, 0)
+            x0 = max(int(bb[1]) - CROP_MARGIN, 0)
+            y1 = min(int(bb[2]) + CROP_MARGIN, Hc)
+            x1 = min(int(bb[3]) + CROP_MARGIN, Wc)
+            y0 = max(y1 - -(-(y1 - y0) // CROP_ALIGN) * CROP_ALIGN, 0)
+            x0 = max(x1 - -(-(x1 - x0) // CROP_ALIGN) * CROP_ALIGN, 0)
+            if (y1 - y0) * (x1 - x0) < Hc * Wc:
+                w_u8, m_crop = _crop_quantize_impl(warped, masks, y0, x0,
+                                                   y1 - y0, x1 - x0)
+                w_u8, m_crop = w_u8.cpu().numpy(), m_crop.cpu().numpy()
+                note_bytes(w_u8, m_crop)
+                t0 = mark("readback_ms", t0)
+                sm_crop = _host_seam_masks(
+                    w_u8.astype(np.float32), m_crop, cfg, edges=edges,
+                    pair_marginals=(tuple(colm), tuple(rowm)),
+                    crop_origin=(y0, x0))
+                t0 = mark("seam_ms", t0)
+                seam_masks = _splice_seam_crop(
+                    masks, torch.as_tensor(sm_crop, device=masks.device),
+                    y0, x0)
+                pano, valid = _blend_resolved(warped, seam_masks, masks,
+                                              cfg)
+                mark("blend_ms", t0)
+                return pano, valid, seam_masks
+        t0 = time.perf_counter()
+    graphcut = cfg.seam.kind.startswith("graphcut")
+    w_host = (_quantize_u8(warped) if graphcut else warped).cpu().numpy()
+    m_host = masks.cpu().numpy()
+    note_bytes(w_host, m_host)
+    if graphcut:
+        w_host = w_host.astype(np.float32)
+    t0 = mark("readback_ms", t0)
+    seam_masks = _host_seam_masks(w_host, m_host, cfg, edges=edges)
+    t0 = mark("seam_ms", t0)
+    pano, valid = _blend_resolved(
+        warped, torch.as_tensor(seam_masks, device=masks.device), masks,
+        cfg)
+    mark("blend_ms", t0)
+    return pano, valid, seam_masks
+
+
 def register_pair(img1: torch.Tensor, img2: torch.Tensor,
                   cfg: PipelineConfig = PipelineConfig(), draws=None,
                   generator: torch.Generator | None = None):
     """Stages 1-5 on two (H, W, 3) float32 images: features (on grays at
     the work scale of the larger extent), matches + homography, cameras,
-    bundle adjustment, wave correction, full-resolution intrinsics.
-    Returns (f1, f2, mi, cams)."""
-    check_supported(cfg)
+    bundle adjustment, wave correction, full-resolution intrinsics (in
+    SCANS mode, with `cfg` normalized by `_normalize_scans`: the affine
+    motion and the pair's affine cameras). Returns (f1, f2, mi, cams)."""
     hw1, hw2 = tuple(img1.shape[:2]), tuple(img2.shape[:2])
     ws = _megapix_scale(cfg.work_megapix,
                         (max(hw1[0], hw2[0]), max(hw1[1], hw2[1])))
@@ -303,8 +631,20 @@ def pair_cameras(f1, f2, mi, hws, cfg: PipelineConfig,
     """Stages 4-5 of a pair: the two cameras from its homography at the
     work scale `ws`, the bundle adjustment over its inliers, the wave
     correction and the intrinsics scaled to full resolution. `hws`: the
-    two images' full-resolution (h, w)."""
+    two images' full-resolution (h, w).
+
+    In SCANS mode the canvas is image 0's frame: G_0 = I and G_1 = H⁻¹
+    (H maps image-0 pixels to image-1 pixels), scaled from the work scale;
+    a pair's least-squares affine is already the joint affine optimum, so
+    there is no bundle adjustment."""
     dev = mi.H.device
+    if cfg.mode == "scans":
+        eye = torch.eye(3, dtype=torch.float32, device=dev)
+        Gs = torch.stack([eye, torch.where(mi.h_valid,
+                                           torch.linalg.inv(mi.H), eye)])
+        if ws < 1.0:
+            Gs = _upscale_affine(Gs, 1.0 / ws)
+        return affine_cameras(Gs)
     sizes = torch.tensor([[_scaled_dim(h, ws), _scaled_dim(w, ws)]
                           for h, w in hws], dtype=torch.int32, device=dev)
     cams = estimate_cameras(mi.H[None], mi.h_valid[None], sizes)
@@ -344,8 +684,10 @@ def stitch_pair_front_impl(img1: torch.Tensor, img2: torch.Tensor,
                            generator: torch.Generator | None = None):
     """Stages 1-7 (detect -> gain-compensated shared-frame warps) on two
     (H, W, 3) images on one device, possibly of different sizes. `draws`:
-    optional (u_first (num_hypotheses, 4), u_refit (256, 4)) RANSAC draws.
-    Returns (warped (2, Hc, Wc, 3), masks (2, Hc, Wc), corner, metrics)."""
+    optional (u_first, u_refit) RANSAC draws (`match_pair`). SCANS mode
+    is normalized here (`_normalize_scans`). Returns (warped (2, Hc, Wc,
+    3), masks (2, Hc, Wc), corner, metrics)."""
+    cfg = _normalize_scans(cfg)
     H1, W1 = img1.shape[:2]
     H2, W2 = img2.shape[:2]
     H, W = max(H1, H2), max(W1, W2)
@@ -375,7 +717,9 @@ def stitch_pair_impl(img1: torch.Tensor, img2: torch.Tensor,
                      cfg: PipelineConfig = PipelineConfig(), draws=None,
                      generator: torch.Generator | None = None):
     """Two (H, W, 3) images on one device -> (pano canvas, valid, corner,
-    metrics)."""
+    metrics). The seam and blend take `cfg` as given (the front
+    normalizes SCANS mode for itself, as in the JAX package); a host seam
+    raises ValueError here (`stitch_pair` splits around it)."""
     H = max(img1.shape[0], img2.shape[0])
     W = max(img1.shape[1], img2.shape[1])
     warped, masks, corner, metrics = stitch_pair_front_impl(
@@ -417,33 +761,51 @@ def stitch_pair(img1, img2, config: PipelineConfig | None = None,
 
     Runs on `device` (default: the CUDA card; with no card it raises).
     RANSAC draws come from a torch.Generator seeded with `seed` on that
-    device, unless `draws` injects them (see stitch_pair_front_impl)."""
+    device, unless `draws` injects them (see stitch_pair_front_impl). A
+    host seam splits the stitch into the front and `_host_seam_blend`
+    (metrics "front" and "host_seam_blend"; otherwise
+    "stitch_pair_total")."""
     cfg = config or PipelineConfig()
     dev = resolve_device(device)
     set_full_precision()
-    t0 = time.perf_counter()
+    timer = StageTimer(dev)
+    gen = _generator(dev, seed)
     a = torch.as_tensor(np.asarray(img1), device=dev)
     b = torch.as_tensor(np.asarray(img2), device=dev)
-    pano, valid, _, metrics = stitch_pair_impl(a, b, cfg, draws,
-                                               _generator(dev, seed))
-    out = _to_uint8(pano, valid, cfg.crop)
-    total_ms = (time.perf_counter() - t0) * 1e3
+    if _needs_host_seam(cfg):
+        with timer.stage("front"):
+            warped, masks, _, metrics = stitch_pair_front_impl(
+                a, b, cfg, draws, gen)
+        with timer.stage("host_seam_blend"):
+            pano, valid, _ = _host_seam_blend(warped, masks, cfg)
+            out = _to_uint8(pano, valid, cfg.crop)
+    else:
+        with timer.stage("stitch_pair_total"):
+            pano, valid, _, metrics = stitch_pair_impl(a, b, cfg, draws, gen)
+            out = _to_uint8(pano, valid, cfg.crop)
     m = {}
     for k, v in metrics.items():
         v = v.detach().cpu().numpy()
         m[k] = v.item() if v.size == 1 else v.tolist()
-    m["stitch_pair_total"] = total_ms
+    m.update(timer.summary())
     return out, m
+
+
+def _pair_points(feats, mis, pairs):
+    """The matched keypoints (P, M, 2) of stacked pairs `mis` in their
+    source and destination views, whose (i, j) indices are `pairs`."""
+    src = torch.stack([feats.xy[i][mis.pairs[p, :, 0].long()]
+                       for p, (i, _) in enumerate(pairs)])
+    dst = torch.stack([feats.xy[j][mis.pairs[p, :, 1].long()]
+                       for p, (_, j) in enumerate(pairs)])
+    return src, dst
 
 
 def _adjust(cams: CameraParams, feats, mis, pairs, pair_valid,
             cfg: PipelineConfig) -> CameraParams:
     """Ray bundle adjustment over the inlier correspondences of stacked
     pairs `mis`, whose (i, j) image indices are `pairs`."""
-    src = torch.stack([feats.xy[i][mis.pairs[p, :, 0].long()]
-                       for p, (i, _) in enumerate(pairs)])
-    dst = torch.stack([feats.xy[j][mis.pairs[p, :, 1].long()]
-                       for p, (_, j) in enumerate(pairs)])
+    src, dst = _pair_points(feats, mis, pairs)
     return bundle_adjust(cams, src, dst, mis.inliers & mis.valid,
                          mis.src_idx.long(), mis.dst_idx.long(), pair_valid,
                          cfg.camera.ba_iters, cfg.camera.ba_kind)
@@ -463,9 +825,11 @@ def register_chain(imgs: torch.Tensor,
     when every link before it is good; with it, one broken link is bridged
     by the skip pair around it. `draws`: optional mapping (i, j) ->
     (u_first, u_refit) RANSAC draws per pair; without it every pair draws
-    from `generator`. Returns (feats, mis (the consecutive pairs), cams,
-    reachable (N,) bool)."""
-    check_supported(cfg)
+    from `generator`. In SCANS mode (`cfg` normalized) the cameras are
+    global affines chained along the pairs (`_chain_affines`, with the
+    skip pairs bridging one broken link), with no bundle adjustment.
+    Returns (feats, mis (the consecutive pairs), cams, reachable (N,)
+    bool)."""
     N, H, W = imgs.shape[:3]
     dev = imgs.device
     ws = _megapix_scale(cfg.work_megapix, (H, W))
@@ -485,13 +849,22 @@ def register_chain(imgs: torch.Tensor,
     good = good_of(mis)
     sizes = torch.tensor([[_scaled_dim(H, ws), _scaled_dim(W, ws)]] * N,
                          dtype=torch.int32, device=dev)
+    mis2 = good2 = None
     if cfg.chain_splice and N >= 3:
         pairs2 = [(j, j + 2) for j in range(N - 2)]
         mis2_list = match(pairs2)
         mis2 = stack(mis2_list)
+        good2 = good_of(mis2)
+    if cfg.mode == "scans":
+        Gs, reachable = _chain_affines(
+            mis, good, mis2, good2,
+            torch.eye(3, dtype=torch.float32, device=dev))
+        if ws < 1.0:
+            Gs = _upscale_affine(Gs, 1.0 / ws)
+        return feats, mis, affine_cameras(Gs), reachable
+    if mis2 is not None:
         cams, reachable = estimate_cameras_spliced(
-            mis.H, mis.h_valid, good, mis2.H, mis2.h_valid, good_of(mis2),
-            sizes)
+            mis.H, mis.h_valid, good, mis2.H, mis2.h_valid, good2, sizes)
         # the skip pairs constrain the bundle adjustment too
         pairs_ba = pairs + pairs2
         mis_ba = stack(mis_list + mis2_list)
@@ -514,8 +887,10 @@ def stitch_chain_front_impl(imgs: torch.Tensor,
                             generator: torch.Generator | None = None):
     """Stages 1-7 of the fixed-N chain on (N, H, W, 3) images on one
     device: `register_chain`, then one warp launch for all N views (the
-    unreachable ones masked out) and gain compensation.
-    Returns (warped (N, Hc, Wc, 3), masks (N, Hc, Wc), corner, metrics)."""
+    unreachable ones masked out) and gain compensation; SCANS mode is
+    normalized here. Returns (warped (N, Hc, Wc, 3), masks (N, Hc, Wc),
+    corner, metrics)."""
+    cfg = _normalize_scans(cfg)
     N, H, W = imgs.shape[:3]
     imgs = imgs.to(torch.float32)
     _, mis, cams, reachable = register_chain(imgs, cfg, draws, generator)
@@ -538,7 +913,8 @@ def stitch_chain_impl(imgs: torch.Tensor,
                       cfg: PipelineConfig = PipelineConfig(), draws=None,
                       generator: torch.Generator | None = None):
     """(N, H, W, 3) chain on one device -> (pano canvas, valid, corner,
-    metrics): the front, then DP seams along the chain and the blend."""
+    metrics): the front, then the seams along the chain and the blend
+    (`cfg` as given; a host seam raises ValueError here)."""
     H, W = imgs.shape[1:3]
     warped, masks, corner, metrics = stitch_chain_front_impl(
         imgs, cfg, draws, generator)
@@ -549,7 +925,9 @@ def stitch_chain_impl(imgs: torch.Tensor,
 def stitch_chain(images, config: PipelineConfig | None = None,
                  seed: int = 0, device=None, draws=None):
     """N same-size (H, W, 3) uint8 RGB views with consecutive overlap ->
-    (pano uint8, metrics), through `stitch_chain_impl`.
+    (pano uint8, metrics), through `stitch_chain_impl`, or for a host seam
+    through the front and `_host_seam_blend` (metrics "front" and
+    "host_seam_blend").
 
     Runs on `device` (default: the CUDA card; with no card it raises).
     RANSAC draws come from a torch.Generator seeded with `seed` on that
@@ -558,12 +936,21 @@ def stitch_chain(images, config: PipelineConfig | None = None,
     dev = resolve_device(device)
     set_full_precision()
     timer = StageTimer(dev)
-    with timer.stage("stitch_chain_total"):
-        imgs = torch.as_tensor(np.stack([np.asarray(im) for im in images]),
-                               device=dev)
-        pano, valid, _, metrics = stitch_chain_impl(
-            imgs, cfg, draws, _generator(dev, seed))
-        out = _to_uint8(pano, valid, cfg.crop)
+    imgs = torch.as_tensor(np.stack([np.asarray(im) for im in images]),
+                           device=dev)
+    gen = _generator(dev, seed)
+    if _needs_host_seam(cfg):
+        with timer.stage("front"):
+            warped, masks, _, metrics = stitch_chain_front_impl(
+                imgs, cfg, draws, gen)
+        with timer.stage("host_seam_blend"):
+            pano, valid, _ = _host_seam_blend(warped, masks, cfg)
+            out = _to_uint8(pano, valid, cfg.crop)
+    else:
+        with timer.stage("stitch_chain_total"):
+            pano, valid, _, metrics = stitch_chain_impl(imgs, cfg, draws,
+                                                        gen)
+            out = _to_uint8(pano, valid, cfg.crop)
     m = {k: v.detach().cpu().numpy().tolist() for k, v in metrics.items()}
     m.update(timer.summary())
     return out, m
@@ -603,9 +990,12 @@ def register_views(imgs: torch.Tensor, cfg: PipelineConfig,
     confident pairs (host); the bundle adjustment over the matched pairs;
     then the wave correction and the intrinsics scaled to full
     resolution. `draws`: optional mapping (i, j) -> (u_first, u_refit)
-    RANSAC draws per pair. `dump` (a `_StageDumper`) writes features.npz,
-    matches.npz and cameras.npz. Returns (cams, tree_edges, reachable
-    (N,) bool, pair confidences), the last two host arrays."""
+    RANSAC draws per pair. In SCANS mode (`cfg` normalized) the cameras
+    are `_scans_cameras` (affines along the tree, the affine adjustment),
+    with no ray adjustment or wave correction. `dump` (a `_StageDumper`)
+    writes features.npz, matches.npz and cameras.npz. Returns (cams,
+    tree_edges, reachable (N,) bool, pair confidences), the last two host
+    arrays."""
     cfg_d = cfg.detector
     dev = imgs.device
     n, H, W = imgs.shape[:3]
@@ -643,17 +1033,22 @@ def register_views(imgs: torch.Tensor, cfg: PipelineConfig,
     with timer.stage("cameras"):
         conf = _np(ms.confidence)
         keep = conf > cfg.matcher.conf_thresh
-        cams, tree_edges, reachable = estimate_cameras_host(
-            _np(ms.H), _np(ms.src_idx), _np(ms.dst_idx),
-            _np(ms.num_inliers), _np(ms.h_valid) & keep, work_sizes,
-            return_tree=True, device=dev)
+        if cfg.mode == "scans":
+            cams, tree_edges, reachable = _scans_cameras(
+                ms, feats, pairs, keep, n, cfg, ws, dev)
+        else:
+            cams, tree_edges, reachable = estimate_cameras_host(
+                _np(ms.H), _np(ms.src_idx), _np(ms.dst_idx),
+                _np(ms.num_inliers), _np(ms.h_valid) & keep, work_sizes,
+                return_tree=True, device=dev)
 
-    if cfg.camera.ba_refine:
-        with timer.stage("bundle_adjust"):
-            cams = _adjust(cams, feats, ms, pairs,
-                           torch.as_tensor(keep, device=dev) & ms.h_valid,
-                           cfg)
-    cams = _finish_cameras(cams, cfg, ws)
+    if cfg.mode != "scans":
+        if cfg.camera.ba_refine:
+            with timer.stage("bundle_adjust"):
+                cams = _adjust(cams, feats, ms, pairs,
+                               torch.as_tensor(keep, device=dev)
+                               & ms.h_valid, cfg)
+        cams = _finish_cameras(cams, cfg, ws)
     dump("cameras", focal=cams.focal, R=cams.R, ppx=cams.ppx, ppy=cams.ppy)
     return cams, tree_edges, np.asarray(reachable), conf
 
@@ -665,14 +1060,15 @@ class Stitcher:
     the maximum spanning tree of the confident pairs on the host, bundle
     adjustment, wave correction), the views resized to the compose scale
     (`compose_megapix`), one warp into a shared canvas, exposure
-    compensation, seams along the tree's edges, the blend and the crop.
-    Images outside the tree's largest component are not composed.
+    compensation, seams along the tree's edges (a host seam through
+    `_host_seam_blend`), the blend and the crop. Images outside the
+    tree's largest component are not composed. SCANS mode is normalized
+    once, here.
 
     Runs on `device` (default: the CUDA card; with no card it raises)."""
 
     def __init__(self, config: PipelineConfig | None = None, device=None):
-        self.cfg = config or PipelineConfig()
-        check_supported(self.cfg)
+        self.cfg = _normalize_scans(config or PipelineConfig())
         self.device = resolve_device(device)
 
     def stitch(self, images, seed: int = 0, dump_stages: str | None = None,
@@ -683,8 +1079,8 @@ class Stitcher:
         dropped, and the warp reads each within its true size.
         `draws`: optional mapping (i, j) -> (u_first, u_refit) RANSAC draws
         per matched pair. `dump_stages`: a directory to write
-        features.npz, matches.npz, cameras.npz, warped.npz and pano.npz.
-        Returns (pano uint8, metrics)."""
+        features.npz, matches.npz, cameras.npz, warped.npz, pano.npz and,
+        for a host seam, seams.npz. Returns (pano uint8, metrics)."""
         cfg = self.cfg
         dev = self.device
         n = len(images)
@@ -718,7 +1114,10 @@ class Stitcher:
             H, W = _scaled_dim(H, cs), _scaled_dim(W, cs)
             imgs = resize_linear_mxu(imgs.permute(0, 3, 1, 2),
                                      (H, W)).permute(0, 2, 3, 1)
-            cams = _upscale_cameras(cams, cs)
+            if cfg.mode == "scans":
+                cams = cams.replace(R=_upscale_affine(cams.R, cs))
+            else:
+                cams = _upscale_cameras(cams, cs)
             if full_sizes is not None:
                 full_sizes = np.maximum(np.round(full_sizes * cs),
                                         1).astype(np.int32)
@@ -736,8 +1135,13 @@ class Stitcher:
         dump("warped", warped=warped, masks=masks, corner=corner)
 
         with timer.stage("seam_blend"):
-            pano, valid = _seam_and_blend(warped, masks, cfg, src_w=W,
-                                          src_h=H, edges=tree_edges)
+            if _needs_host_seam(cfg):
+                pano, valid, seam_masks = _host_seam_blend(
+                    warped, masks, cfg, edges=tree_edges)
+                dump("seams", seam_masks=seam_masks)
+            else:
+                pano, valid = _seam_and_blend(warped, masks, cfg, src_w=W,
+                                              src_h=H, edges=tree_edges)
             pano, valid = _crop_valid(pano.cpu().numpy(),
                                       valid.cpu().numpy(), cfg.crop)
         dump("pano", pano=pano, valid=valid)

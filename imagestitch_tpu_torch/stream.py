@@ -4,12 +4,14 @@
 - `calibrate(images)` runs the N-view registration of the `Stitcher`
   (`pipeline.register_views`: one batched detect at the work scale, all
   pairs matched, rotations along the spanning tree, bundle adjustment,
-  wave correction) on one frame set, warps it (one warp launch for the
-  warp kernel's projectors), drops the views outside the tree's largest
-  component from the masks, applies exposure compensation, resolves DP or
-  Voronoi seams along i -> i+1 (not along the tree, as the JAX package's
-  stream does) and freezes the seam masks, the cameras and the warp's
-  inputs.
+  wave correction; in SCANS mode the affine cameras along the tree and
+  the affine adjustment) on one frame set, warps it (one warp launch for
+  the warp kernel's projectors), drops the views outside the tree's
+  largest component from the masks, applies exposure compensation,
+  resolves DP or Voronoi seams along i -> i+1 (not along the tree, as the
+  JAX package's stream does), or the host seams on the whole float32
+  canvases read back (`pipeline._host_seam_masks`, chain order, no
+  edges), and freezes the seam masks, the cameras and the warp's inputs.
 - `compose(images)` warps a new frame set with the frozen registration
   (one warp launch, no detection), applies exposure compensation and
   blends with the frozen seam masks, then crops on the host.
@@ -25,9 +27,9 @@ import torch
 from imagestitch_tpu_torch.config import PipelineConfig
 from imagestitch_tpu_torch.pipeline import (
     _apply_exposure, _blend_resolved, _crop_valid, _generator,
-    _pano_canvas_shape, _seam_pair, check_supported, register_views,
-    resolve_device, set_full_precision, warp_inputs, warp_scale,
-    warp_views)
+    _host_seam_masks, _needs_host_seam, _normalize_scans, _pano_canvas_shape,
+    _seam_pair, register_views, resolve_device, set_full_precision,
+    warp_inputs, warp_scale, warp_views)
 from imagestitch_tpu_torch.utils.log import StageTimer
 
 
@@ -36,8 +38,7 @@ class StreamStitcher:
     `stages_ms` holds the wall ms per stage of the last call."""
 
     def __init__(self, config: PipelineConfig | None = None, device=None):
-        self.cfg = config or PipelineConfig()
-        check_supported(self.cfg)
+        self.cfg = _normalize_scans(config or PipelineConfig())
         self.device = resolve_device(device)
         self._frozen = None
         self.stages_ms: dict[str, float] = {}
@@ -82,12 +83,19 @@ class StreamStitcher:
         with timer.stage("exposure"):
             warped = _apply_exposure(warped, masks, cfg)
         with timer.stage("seam"):
-            sm = [masks[i] for i in range(n)]
-            if cfg.seam.kind != "none":
-                for i in range(n - 1):
-                    sm[i], sm[i + 1] = _seam_pair(
-                        warped[i], warped[i + 1], sm[i], sm[i + 1], cfg)
-            self._frozen["seam_masks"] = torch.stack(sm)
+            if _needs_host_seam(cfg):
+                sm = torch.as_tensor(_host_seam_masks(
+                    warped.cpu().numpy(), masks.cpu().numpy(), cfg),
+                    device=dev)
+            else:
+                sm = [masks[i] for i in range(n)]
+                if cfg.seam.kind != "none":
+                    for i in range(n - 1):
+                        sm[i], sm[i + 1] = _seam_pair(
+                            warped[i], warped[i + 1], sm[i], sm[i + 1],
+                            cfg)
+                sm = torch.stack(sm)
+            self._frozen["seam_masks"] = sm
         with timer.stage("blend"):
             pano, valid = _blend_resolved(warped, self._frozen["seam_masks"],
                                           masks, cfg)

@@ -14,8 +14,8 @@ RANSAC draws taken from its key of `jax.random.split(key, B)`.
   runs the same operations; the warp takes each view's pair scale).
 - One batched detect and one warp call for the whole batch.
 - seam.orient="auto" resolves to "vertical" (the batch equals an explicit
-  vertical batch); the host seam kinds raise (ROADMAP item 15), as the
-  JAX batch refuses them; without a card the default device raises.
+  vertical batch); the host seam kinds raise the JAX batch's ValueError,
+  with its message; without a card the default device raises.
 """
 
 import dataclasses
@@ -30,7 +30,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from imagestitch_tpu.config import (BlendConfig, CameraConfig,  # noqa
                                     DetectorConfig, MatcherConfig,
-                                    PipelineConfig, RansacConfig)
+                                    PipelineConfig, RansacConfig,
+                                    SeamConfig)
 from imagestitch_tpu.parallel import stitch_pairs_batched as jbatched  # noqa
 from imagestitch_tpu.utils.io import synthetic_pair  # noqa: E402
 import imagestitch_tpu_torch as tist  # noqa: E402
@@ -149,9 +150,16 @@ def test_auto_orient_resolves_to_vertical(runs):
                                   dict(kind="dp_color",
                                        full_components=True)])
 def test_batched_host_seam_kind_raises(seam):
+    """A host seam has no place in a batch: the port raises the JAX
+    package's ValueError, before any stitching."""
     cfg = tist.PipelineConfig().replace(seam=tist.SeamConfig(**seam))
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="resolves on the host") as et:
         tist.stitch_pairs_batched(_pairs(1), cfg, device="cpu")
+    jc = TINY.replace(seam=SeamConfig(**seam))
+    with pytest.raises(ValueError, match="resolves on the host") as ej:
+        jbatched(jnp.asarray(_pairs(1), jnp.float32),
+                 jax.random.split(jax.random.key(0), 1), jc)
+    assert str(et.value) == str(ej.value)
 
 
 def test_batched_checks_shape_and_device():

@@ -8,10 +8,10 @@ cli`) against `imagestitch_tpu.cli` on the CPU (`--device cpu`).
 - `stitch` on two PNG files gives `stitch_pair`'s pano on the same arrays,
   bit for bit, and `--metrics` prints its metrics as JSON; on three files
   it gives `stitch`'s pano.
-- Every option and choice of the JAX CLI parses; the choices that are
-  not ported (SCANS mode, the host seams) raise NotImplementedError
-  naming their ROADMAP item, before any stitching; every other choice
-  stitches the demo; without a card the default device raises.
+- Every option and choice of the JAX CLI parses and stitches the demo;
+  SCANS mode and the host seams (the choices that once raised
+  NotImplementedError) write `stitch_pair`'s pano with the same
+  configuration, bit for bit; without a card the default device raises.
 """
 
 import json
@@ -83,11 +83,22 @@ def test_stitch_files_equal_the_entry_points(tmp_path, capsys):
     (["--full_seam_components"], 15),
 ])
 def test_unported_choices_raise_with_roadmap_item(tmp_path, args, item):
+    """The ROADMAP items 15 and 16 choices run now: the demo's PNG is
+    `stitch_pair`'s pano with the same configuration, bit for bit."""
     out = str(tmp_path / "x.png")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        cli.main(["demo", "--size", "64x96", "-o", out, "--device", "cpu",
-                  *args])
-    assert not os.path.exists(out)
+    assert cli.main(["demo", "--size", "128x160", "-o", out, "--device",
+                     "cpu", *args]) == 0
+    if args[0] == "--mode":
+        change = dict(mode="scans")
+    elif args[0] == "--seam":
+        change = dict(seam=tist.SeamConfig(kind=args[1]))
+    else:
+        change = dict(seam=tist.SeamConfig(full_components=True))
+    cfg = tist.PipelineConfig().replace(**change)
+    assert (cfg.mode == "scans") == (item == 16)
+    img1, img2, _ = synthetic_pair(128, 160)
+    want, _ = tist.stitch_pair(img1, img2, cfg, device="cpu")
+    assert np.array_equal(imread(out), want)
 
 
 @pytest.mark.parametrize("args", [

@@ -1,5 +1,6 @@
 """imagestitch_tpu_torch: configuration parity with the JAX package, the
-no-JAX import rule, and the device / unported-kind guards."""
+no-JAX import rule, the device guards, and how the port reads the host
+seams and SCANS mode from a configuration (as the JAX package does)."""
 
 import ast
 import dataclasses
@@ -68,22 +69,31 @@ def test_config_validation_matches():
 
 
 def test_unported_kinds_raise_with_roadmap_item():
-    """Only the host seams (item 15) and SCANS mode (item 16) are
-    refused; the item-13 kinds this test once refused (the fisheye warp,
-    the ramp blend) are accepted, and run in
-    tests/test_torch_projectors.py and tests/test_torch_options_pipeline.py."""
+    """No kind is refused any more. The configurations this test once
+    refused, the host seams (ROADMAP item 15) and SCANS mode (item 16),
+    are read as the JAX package reads them: `_needs_host_seam` and
+    `_normalize_scans` give JAX's answers on them and on every other
+    configuration here (the runs are in test_torch_host_seams.py and
+    test_torch_scans.py). The item-13 kinds (the fisheye warp, the ramp
+    blend) run in tests/test_torch_projectors.py and
+    tests/test_torch_options_pipeline.py."""
+    from imagestitch_tpu import pipeline as jpipe
+    from imagestitch_tpu_torch import pipeline as tpipe
     assert tcfg.WarpConfig(kind="fisheye").kind == "fisheye"
     with pytest.raises(AssertionError):
         tcfg.WarpConfig(kind="nope")
-    from imagestitch_tpu_torch.pipeline import check_supported
-    for cfg, item in [
-            (tcfg.PipelineConfig(seam=tcfg.SeamConfig(kind="graphcut")), 15),
-            (tcfg.PipelineConfig(seam=tcfg.SeamConfig(
-                full_components=True)), 15),
-            (tcfg.PipelineConfig(mode="scans"), 16)]:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            check_supported(cfg)
+    with pytest.raises(AssertionError):
+        tcfg.PipelineConfig(matcher=tcfg.MatcherConfig(motion="affine"))
     for cfg in [
+            tcfg.PipelineConfig(seam=tcfg.SeamConfig(kind="graphcut")),
+            tcfg.PipelineConfig(seam=tcfg.SeamConfig(
+                kind="graphcut_colorgrad", seam_megapix=0.1)),
+            tcfg.PipelineConfig(seam=tcfg.SeamConfig(full_components=True)),
+            tcfg.PipelineConfig(seam=tcfg.SeamConfig(
+                kind="voronoi", full_components=True)),
+            tcfg.PipelineConfig(mode="scans"),
+            tcfg.PipelineConfig(mode="scans", matcher=tcfg.MatcherConfig(
+                motion="affine")),
             tcfg.PipelineConfig(),
             tcfg.PipelineConfig(detector=tcfg.DetectorConfig(kind="sift")),
             tcfg.PipelineConfig(blend=tcfg.BlendConfig(kind="multiband")),
@@ -96,7 +106,14 @@ def test_unported_kinds_raise_with_roadmap_item():
                 exposure=tcfg.ExposureConfig(kind="channels_blocks"),
                 seam=tcfg.SeamConfig(kind="voronoi"), work_megapix=0.5,
                 compose_megapix=0.2, crop="interior")]:
-        check_supported(cfg)
+        jc = jcfg.PipelineConfig(**{
+            f.name: getattr(jcfg, type(getattr(cfg, f.name)).__name__)(
+                **dataclasses.asdict(getattr(cfg, f.name)))
+            if dataclasses.is_dataclass(getattr(cfg, f.name))
+            else getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+        assert tpipe._needs_host_seam(cfg) == jpipe._needs_host_seam(jc)
+        assert dataclasses.asdict(tpipe._normalize_scans(cfg)) == \
+            dataclasses.asdict(jpipe._normalize_scans(jc))
 
 
 def _python_files():

@@ -34,8 +34,9 @@ plain versions), with the JAX RANSAC draws injected per pair.
   1e-3 (2e-2 on the noise case's near-pure translation) and the pano's
   shape within 2%.
 - `dump_stages` writes the JAX package's .npz names with the same arrays'
-  shapes; configurations not ported raise NotImplementedError naming their
-  ROADMAP item; the entry points raise without a card by default.
+  shapes; the host seams and SCANS mode (once refused) run through
+  `Stitcher`, `stitch()` and `stitch_chain`; the entry points raise
+  without a card by default.
 """
 
 import dataclasses
@@ -384,14 +385,26 @@ def test_stitcher_one_and_two_views():
     ({"seam": tist.SeamConfig(full_components=True)}, 15),
 ])
 def test_unported_options_raise_with_roadmap_item(change, item):
-    cfg = tist.PipelineConfig().replace(**change)
-    views = jio.synthetic_sequence(3, 64, 96, overlap=0.5, seed=9)[0]
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tist.Stitcher(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tist.stitch(views, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tist.stitch_chain(views, cfg, device="cpu")
+    """The options this test once refused (ROADMAP items 15 and 16) run:
+    `Stitcher` and `stitch()` give the same pano with every view
+    reachable, `stitch_chain` reaches every view, and the host seams add
+    their seams.npz dump. Held against JAX in test_torch_host_seams.py
+    and test_torch_scans.py."""
+    if item == 15:
+        cfg = ST_CFG.replace(seam=jcfg.SeamConfig(**dataclasses.asdict(
+            change["seam"])))
+    else:
+        cfg = ST_CFG.replace(**change)
+    cfg = _tcfg(cfg)
+    views = list(jio.synthetic_sequence(3, 160, 224, overlap=0.5,
+                                        seed=9)[0])
+    draws = all_pair_draws(0, 3, 512) if item == 15 else None
+    p1, m1 = tist.Stitcher(cfg, device="cpu").stitch(views, draws=draws)
+    p2, _ = tist.stitch(views, cfg, device="cpu", draws=draws)
+    assert np.array_equal(p1, p2) and m1["reachable"] == [True] * 3
+    assert p1.std() > 20
+    p3, m3 = tist.stitch_chain(views, cfg, device="cpu")
+    assert all(m3["reachable"]) and p3.std() > 20
 
 
 @pytest.mark.parametrize("change", [{"compose_megapix": 0.02},

@@ -25,8 +25,8 @@ package's Stitcher test configuration (plane warp, no bundle adjustment).
   frames of other focal, are not compared. The calibration and compose
   panos have the same shape within 2%; for the shuffled order the compose
   canvas's valid pixels have IoU >= 0.999 against JAX's.
-- Configurations that are not ported raise NotImplementedError naming
-  their ROADMAP item; without a card the default device raises.
+- SCANS mode and the graph-cut seam (once refused) calibrate and compose
+  a panning rig; without a card the default device raises.
 """
 
 import dataclasses
@@ -189,9 +189,20 @@ def test_shuffled_compose_valid_matches_jax(runs):
     ({"seam": tist.SeamConfig(kind="graphcut")}, 15),
 ])
 def test_unported_options_raise_with_roadmap_item(change, item):
+    """The options this test once refused (ROADMAP items 15 and 16) run:
+    calibrate registers every view of a panning rig, and compose of the
+    calibration frames gives the calibration pano. Held against JAX in
+    test_torch_host_seams.py and test_torch_scans.py."""
     cfg = tist.PipelineConfig().replace(**change)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tist.StreamStitcher(cfg, device="cpu")
+    ss = tist.StreamStitcher(cfg, device="cpu")
+    assert ss.cfg.warp.kind == ("plane" if item == 16 else "cylindrical")
+    views = pan_sequence(3)
+    draws = (all_pair_draws(0, 3, 2048) if item == 15 else None)
+    pano, m = ss.calibrate(views, draws=draws)
+    assert m["reachable"] == [True] * 3 and pano.std() > 20
+    same = ss.compose(views)
+    assert same.shape == pano.shape
+    assert np.abs(same.astype(np.float64) - pano).mean() < 1.0
 
 
 @pytest.mark.parametrize("change", [
