@@ -158,12 +158,37 @@ result line is printed):
 24. scans_path — stitch_pair(mode="scans") on the same 1080p pair (median
                 of 5, launches 2 and 1, the stage split) and a scans
                 Stitcher on three translated 480x640 views.
-25. cli       — `imagestitch_tpu_torch.cli demo --size 1080x1920` on the
+25. pano_reference — parallel.stitch_chain_pano (the N-1 pair seams
+                resolved independently, then merged) on 4 views of 192x256
+                on the card and on the CPU with the same draws (seams
+                vertical, no bundle adjustment): corner equal, focal
+                within 1e-3, valid IoU >= 0.999, canvas within 0.5 on
+                average; on the card equal to stitch_chain_impl (empty
+                triple overlaps: the two seam schedules agree).
+26. pano_path — stitch_chain_pano on chain8_1080p: launches (K1 1, K2 1),
+                the median of 3 walls alternating with stitch_chain_impl
+                and stitch_chain on the same views, and the seam stage of
+                the 7 independent pair seams beside the 7 sequential ones.
+27. sharded_path — stitch_pairs_sharded (8 distinct 1080p pairs),
+                stitch_chain_pano_sharded (chain8_1080p) and
+                stitch_pair_hostseam_sharded (graph cut at seam_megapix
+                0.1) equal, bit for bit, to stitch_pairs_batched,
+                stitch_chain_pano and stitch_pair's split, on a mesh of
+                every card and on meshes naming the one card twice and
+                four times ({"data": 2}, {"data": 2, "model": 2}): logic
+                checks of the split on one card, not a multi-card
+                measurement; K1 and K2 once per data shard.
+28. aot       — aot.stitch_pair_program(1080, 1920) into a fresh directory:
+                the cold build of both libraries and a second call
+                (was_cached False, then True) with their seconds, its call
+                equal to stitch_pair_impl; cached_export round-tripping a
+                tensor function on the card; clear().
+29. cli       — `imagestitch_tpu_torch.cli demo --size 1080x1920` on the
                 card writes a PNG wider than 1920.
-26. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
+30. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
                 of the 1080p SIFT plane stitch, and the device's busy share
                 of one stitch of each (torch.profiler, after the timing).
-27. kernel_times — K1's and K3's work for one stitch, the kernels alone from
+31. kernel_times — K1's and K3's work for one stitch, the kernels alone from
                 torch.profiler kernel events (median of 20 rounds) with L2
                 flushed by a 256 MB write and warm; K1 also as ten
                 one-level launches, as the chain's one launch for 8 views,
@@ -172,7 +197,7 @@ result line is printed):
                 also by kernel name and by octave, and the CUDA kernels the
                 trace shows per stitch (8). Last, since once the profiler
                 has traced the card, later launches cost the host more.
-28. kernels   — one line {"kernels": [...]}: launches on the main path
+32. kernels   — one line {"kernels": [...]}: launches on the main path
                 (`launches`) and on each path (`launches_by_path`, counted
                 over the path's run), error against the plain version,
                 kernel / plain / library ms and the least time the card
@@ -180,6 +205,8 @@ result line is printed):
 
 Then the card's name and power limit, and the last line
 {"ok": true, "device": {...}}. Needs one card; builds everything it runs.
+`python3 chip_smoke.py PHASE...` runs the device and build phases and the
+named ones alone, without the kernels line.
 """
 
 from __future__ import annotations
@@ -268,6 +295,7 @@ def phase_device(state):
     from imagestitch_tpu_torch.utils.timing import smi_line
     state["name"] = torch.cuda.get_device_name(0)
     state["smi"] = smi_line()
+    state["rot"] = _rotation_pair_1080()
     emit({"phase": "device", "name": state["name"], "smi": state["smi"],
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -810,7 +838,8 @@ def _record_path(state, path, launches):
     """Each kernel's launches on one path, counted from 0 before the path
     was driven and read right after."""
     for key, name in KERNEL_KEYS.items():
-        state[key].setdefault("launches_by_path", {})[path] = launches[name]
+        state.setdefault(key, {}).setdefault(
+            "launches_by_path", {})[path] = launches[name]
 
 
 def _warm_walls(fn, n: int = 5):
@@ -2194,6 +2223,359 @@ def phase_scans_path(state):
           "card": state["name"], "smi": state["smi"]})
 
 
+def _chain_pano_draws(n, seed):
+    """Per consecutive pair (i, i+1) of an n-view chain, seeded CPU draws
+    (u_first, u_refit)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return {(i, i + 1): (torch.rand((2048, 4), generator=g),
+                         torch.rand((256, 4), generator=g))
+            for i in range(n - 1)}
+
+
+def phase_pano_reference(state):
+    """stitch_chain_pano on 4 views of 192x256 (synthetic_sequence,
+    overlap 0.5; seams pinned vertical; no bundle adjustment, as phase
+    chain_reference, since on a near-pure translation the adjuster's stop
+    moves by percents with float32 rounding) on the card and on the CPU
+    with the same draws: corner equal, focal within 1e-3, valid IoU >=
+    0.999, the canvas within 0.5 on average where both cover. On the card,
+    its valid equals stitch_chain_impl's and its pano is within 1e-3 of
+    it: the chain has empty triple overlaps, so the independent and the
+    sequential seam schedules agree."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import CameraConfig, PipelineConfig
+    from imagestitch_tpu_torch.parallel import stitch_chain_pano
+    from imagestitch_tpu_torch.pipeline import stitch_chain_impl
+    from imagestitch_tpu_torch.utils.io import synthetic_sequence
+    views, _ = synthetic_sequence(4, 192, 256, overlap=0.5, seed=5)
+    cfg = PipelineConfig(camera=CameraConfig(ba_refine=False))
+    cfg = cfg.replace(seam=dataclasses.replace(cfg.seam, orient="vertical"))
+    draws = _chain_pano_draws(4, 4)
+    out = {dev: stitch_chain_pano(views, cfg, device=dev, draws=draws)
+           for dev in ("cuda", "cpu")}
+    (pc, vc, cc, mc), (pp, vp, cp, mp) = out["cuda"], out["cpu"]
+    pc_, vc_ = pc.cpu(), vc.cpu()
+    check(bool(mc["h_valid"].all() and mc["reachable"].all()),
+          f"h_valid {mc['h_valid']}, reachable {mc['reachable']}")
+    check(torch.equal(cc.cpu(), cp), f"corner card {cc} vs CPU {cp}")
+    for k in ("num_inliers", "h_valid", "reachable"):
+        check(torch.equal(mc[k].cpu(), mp[k]), f"{k}: card {mc[k]} vs "
+              f"CPU {mp[k]}")
+    fc, fp = float(mc["focal"]), float(mp["focal"])
+    check(abs(fc - fp) <= 1e-3 * fp, f"focal card {fc} vs CPU {fp}")
+    iou = float((vc_ & vp).sum()) / max(float((vc_ | vp).sum()), 1.0)
+    check(iou >= 0.999, f"valid IoU {iou}")
+    both = vc_ & vp
+    diff = float((pc_ - pp).abs()[both].mean())
+    check(diff < 0.5, f"pano mean abs diff {diff}")
+    imgs = torch.as_tensor(np.stack(views), device="cuda")
+    ps, vs, cs, _ = stitch_chain_impl(imgs, cfg, draws)
+    seq_diff = float((ps - pc).abs().max())
+    check(torch.equal(vs, vc) and torch.equal(cs, cc) and seq_diff <= 1e-3,
+          f"independent vs sequential seams: valid equal "
+          f"{torch.equal(vs, vc)}, max diff {seq_diff}")
+    emit({"phase": "pano_reference", "canvas": list(vc.shape),
+          "focal_card": fc, "focal_cpu": fp, "iou": iou,
+          "pano_mean_abs_diff": diff, "vs_sequential_max_abs_diff": seq_diff,
+          "inliers": mc["num_inliers"].tolist()})
+
+
+def _seam_stage_ms(views, n_warm: int = 3):
+    """Wall ms of the seam stage of chain8 on the card (synchronized,
+    median of `n_warm` runs after a first one, on one front's canvases):
+    the 7 independent pair seams and their merge (parallel.pano), beside
+    the 7 sequential seams of stitch_chain_impl (default configuration,
+    orient "auto")."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import PipelineConfig
+    from imagestitch_tpu_torch import pipeline as P
+    from imagestitch_tpu_torch.parallel import pano
+    cfg = PipelineConfig()
+    h, w = views[0].shape[:2]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    imgs = torch.as_tensor(np.stack(views), device="cuda").float()
+    warped, masks, _, _ = P.stitch_chain_front_impl(imgs, cfg,
+                                                    generator=gen)
+    max_w = -(-int(round(1.1 * w)) // 128) * 128
+
+    def independent():
+        pano._independent_pair_seams(warped, masks, cfg, max_w)
+
+    def sequential():
+        sm = [masks[i] for i in range(len(views))]
+        for u in range(len(views) - 1):
+            sm[u], sm[u + 1] = P._seam_pair(warped[u], warped[u + 1], sm[u],
+                                            sm[u + 1], cfg, max_w,
+                                            -(-int(round(1.1 * h)) // 128)
+                                            * 128)
+        torch.stack(sm)
+
+    out = {}
+    for name, fn in (("independent", independent),
+                     ("sequential", sequential)):
+        fn()
+        walls = _warm_walls(fn, n_warm)
+        out[name] = {"ms_median": float(np.median(walls)), "ms": walls}
+    return out
+
+
+def phase_pano_path(state):
+    """stitch_chain_pano on chain8_1080p (8 views of 1080x1920, canvas
+    1458x16704, the default configuration): every h_valid and reachable,
+    launches (K1 1, K2 1); walls (median of 3),
+    alternating with stitch_chain_impl (uncropped tensors on the card,
+    as stitch_chain_pano returns) and the entry stitch_chain (read back
+    and cropped) on the same views; the seam stage of the 7 independent
+    pair seams beside the 7 sequential ones."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import PipelineConfig, stitch_chain
+    from imagestitch_tpu_torch.parallel import stitch_chain_pano
+    from imagestitch_tpu_torch.pipeline import (_generator,
+                                                stitch_chain_impl)
+    from imagestitch_tpu_torch.utils.io import synthetic_sequence
+    name, n, h, w = CHAIN_CASES[0]
+    views, shift = synthetic_sequence(n, h, w, overlap=0.5, seed=7)
+    _reset_counts()
+    p, v, c, m = stitch_chain_pano(views)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    want = {"detect_maps": 1, "sift_octave_maps": 0, "warp_batched": 1,
+            "slab_probe": 0}
+    check(launches == want, f"kernel launches {launches}, want {want}")
+    _record_path(state, "pano_path", launches)
+    check(bool(m["h_valid"].all() and m["reachable"].all()),
+          f"h_valid {m['h_valid']}, reachable {m['reachable']}")
+    check(bool(torch.isfinite(p).all()), "non-finite pano")
+    width = int(v.any(dim=0).sum())
+    want_w = w + (n - 1) * shift
+    check(abs(width - want_w) < 0.1 * want_w,
+          f"pano width {width} vs {want_w}")
+    imgs = torch.as_tensor(np.stack(views), device="cuda")
+    ps, vs, cs, _ = stitch_chain_impl(imgs, PipelineConfig(),
+                                      generator=_generator("cuda", 0))
+    iou = float((vs & v).sum()) / max(float((vs | v).sum()), 1.0)
+    check(torch.equal(cs, c) and iou >= 0.999,
+          f"stitch_chain_impl's corner {cs.tolist()} vs {c.tolist()}, "
+          f"valid IoU {iou}")
+    seq = {"valid_iou": iou, "valid_equal": bool(torch.equal(vs, v)),
+           "mean_abs_diff": float((ps - p).abs()[vs & v].mean())}
+    state["pano8"] = (views, (p, v, c, m))
+    del ps, vs, imgs
+
+    def pano_call():
+        stitch_chain_pano(views)
+
+    def impl_call():
+        x = torch.as_tensor(np.stack(views), device="cuda")
+        stitch_chain_impl(x, PipelineConfig(),
+                          generator=_generator(x.device, 0))
+
+    walls = {"stitch_chain_pano": [], "stitch_chain_impl": [],
+             "stitch_chain": []}
+    for _ in range(3):
+        for key, fn in (("stitch_chain_pano", pano_call),
+                        ("stitch_chain_impl", impl_call),
+                        ("stitch_chain", lambda: stitch_chain(views))):
+            walls[key] += _warm_walls(fn, 1)
+    emit({"phase": "pano_path", "case": name, "launches": launches,
+          "canvas": list(v.shape), "width": width, "want_width": want_w,
+          "focal": float(m["focal"]), "inliers": m["num_inliers"].tolist(),
+          "vs_sequential": seq,
+          "wall_ms_median": {k: float(np.median(x))
+                             for k, x in walls.items()},
+          "wall_ms": walls, "seam_stage": _seam_stage_ms(views),
+          "card": state["name"], "smi": state["smi"]})
+
+
+def _equal_outputs(name, a, b):
+    """(pano, valid, corner, metrics) equal bit for bit, or the phase
+    fails."""
+    import torch
+    for what, x, y in zip(("pano", "valid", "corner"), a[:3], b[:3]):
+        check(torch.equal(x, y), f"{name}: {what} differs")
+    for k in b[3]:
+        check(torch.equal(a[3][k], b[3][k]), f"{name}: metric {k} differs")
+
+
+def phase_sharded_path(state):
+    """The sharded entry points against their unsplit runs, bit for bit:
+    stitch_pairs_sharded on 8 distinct 1080p pairs against
+    stitch_pairs_batched with the same seed; stitch_chain_pano_sharded on
+    chain8_1080p against stitch_chain_pano; stitch_pair_hostseam_sharded
+    (graph cut at seam_megapix 0.1) on the 1080p 40%-overlap pair against
+    stitch_pair's split (front + _host_seam_blend) on the same draws.
+    First on make_mesh({"data": device_count}), then on meshes that name
+    the one card twice ({"data": 2}) and four times ({"data": 2,
+    "model": 2}): the split, the gathers, the per-shard launches (K1 and
+    K2 once per data shard) and the hypothesis split run on one card.
+    Those runs are logic checks on one card, not a multi-card
+    measurement: their walls are one card's. With four cards
+    (`python3 chip_smoke.py sharded_path` on them) the first mesh spans
+    them, shards on distinct cards running in threads, and a {"data": 2,
+    "model": 2} mesh of the four is added."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import PipelineConfig, SeamConfig
+    from imagestitch_tpu_torch import pipeline as P
+    from imagestitch_tpu_torch.parallel import (
+        make_mesh, stitch_chain_pano, stitch_chain_pano_sharded,
+        stitch_pair_hostseam_sharded, stitch_pairs_batched,
+        stitch_pairs_sharded)
+    from imagestitch_tpu_torch.utils.io import (synthetic_pair,
+                                                synthetic_sequence)
+    n_pairs = 8
+    pairs = np.stack([np.stack(synthetic_pair(
+        1080, 1920, overlap=0.3 + 0.3 * k / n_pairs, seed=10 + k)[:2])
+        for k in range(n_pairs)])
+    batched = stitch_pairs_batched(pairs, seed=3)
+    check(bool(batched[3]["h_valid"].all()),
+          f"batched h_valid {batched[3]['h_valid']}")
+    if "pano8" in state:        # phase pano_path's run on these views
+        views, pano_ref = state.pop("pano8")
+    else:
+        views, _ = synthetic_sequence(8, 1080, 1920, overlap=0.5, seed=7)
+        pano_ref = stitch_chain_pano(views)
+    i1, i2, _ = synthetic_pair(1080, 1920, overlap=0.4, seed=0)
+    gcfg = PipelineConfig(seam=SeamConfig(kind="graphcut", seam_megapix=0.1))
+    g = torch.Generator().manual_seed(8)
+    draws = (torch.rand((2048, 4), generator=g),
+             torch.rand((256, 4), generator=g))
+    warped, masks, corner, gm = P.stitch_pair_front_impl(
+        torch.as_tensor(i1, device="cuda"), torch.as_tensor(i2, device="cuda"),
+        gcfg, draws)
+    hp, hv, _ = P._host_seam_blend(warped, masks, gcfg)
+    host_ref = (hp, hv, corner, gm)
+    del warped, masks
+
+    n_dev = torch.cuda.device_count()
+    meshes = {f"data{n_dev}": ({"data": n_dev}, None),
+              "data2_one_card": ({"data": 2}, ["cuda:0"] * 2),
+              "data2_model2_one_card": ({"data": 2, "model": 2},
+                                        ["cuda:0"] * 4)}
+    if n_dev >= 4:              # the hypothesis split across cards too
+        meshes["data2_model2"] = ({"data": 2, "model": 2}, None)
+    runs, total = {}, {}
+    for label, (axes, devices) in meshes.items():
+        mesh = make_mesh(axes, devices)
+        shards = axes["data"]
+        res = {}
+        for entry, fn, ref, want in (
+                ("stitch_pairs_sharded",
+                 lambda: stitch_pairs_sharded(pairs, mesh, seed=3), batched,
+                 (shards, shards)),
+                ("stitch_chain_pano_sharded",
+                 lambda: stitch_chain_pano_sharded(views, mesh), pano_ref,
+                 (shards, shards)),
+                ("stitch_pair_hostseam_sharded",
+                 lambda: stitch_pair_hostseam_sharded(i1, i2, mesh, gcfg,
+                                                      draws=draws),
+                 host_ref, (2, 1))):
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launches = _read_counts()
+            _add_counts(total, launches)
+            got = (launches["detect_maps"], launches["warp_batched"])
+            check(got == want and launches["sift_octave_maps"] == 0
+                  and launches["slab_probe"] == 0,
+                  f"{label} {entry}: launches {launches}, want K1, K2 "
+                  f"{want}")
+            _equal_outputs(f"{label} {entry}", out, ref)
+            del out
+            res[entry] = {"launches": launches, "equal": True,
+                          "wall_ms": wall}
+        runs[label] = {"axes": axes, "devices": [str(d) for d in
+                                                 mesh.devices.flat],
+                       "data_shards": shards, "entries": res}
+    _record_path(state, "sharded_path", total)
+    emit({"phase": "sharded_path",
+          "note": "logic checks: a mesh that names one card more than "
+                  "once runs its shards one after another on that card; "
+                  "no wall here is a multi-card speed measurement",
+          "device_count": n_dev, "runs": runs,
+          "inliers": batched[3]["num_inliers"].tolist(),
+          "card": state["name"], "smi": state["smi"]})
+
+
+def phase_aot(state):
+    """aot.stitch_pair_program(1080, 1920) into a fresh directory under
+    build/: the cold build of both libraries (was_cached False) and a
+    second call (was_cached True), each with its seconds; its call equal
+    to stitch_pair_impl on the rotation pair with the same draws (bit
+    for bit; launches K1 2, K2 1); cached_export round-tripping a small
+    tensor function on the card; clear() removing the blob and both
+    library directories."""
+    import shutil
+    import tempfile
+    import torch
+    from imagestitch_tpu_torch import aot
+    from imagestitch_tpu_torch.pipeline import stitch_pair_impl
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    d = tempfile.mkdtemp(prefix="aot-", dir=os.path.join(HERE, "build"))
+    try:
+        t0 = time.perf_counter()
+        call, cached = aot.stitch_pair_program(1080, 1920, directory=d)
+        cold_s = time.perf_counter() - t0
+        check(not cached, "cold stitch_pair_program reported was_cached")
+        t0 = time.perf_counter()
+        call, cached2 = aot.stitch_pair_program(1080, 1920, directory=d)
+        warm_s = time.perf_counter() - t0
+        check(cached2, "second stitch_pair_program: was_cached false")
+        img1, img2 = state["rot"][:2]
+        g = torch.Generator().manual_seed(9)
+        draws = (torch.rand((2048, 4), generator=g),
+                 torch.rand((256, 4), generator=g))
+        a = torch.as_tensor(img1, device="cuda").float()
+        b = torch.as_tensor(img2, device="cuda").float()
+        _reset_counts()
+        got = call(a, b, draws)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        want = {"detect_maps": 2, "sift_octave_maps": 0, "warp_batched": 1,
+                "slab_probe": 0}
+        check(launches == want, f"program call: launches {launches}")
+        _record_path(state, "aot", launches)
+        _equal_outputs("stitch_pair_program", got,
+                       stitch_pair_impl(a, b, draws=draws))
+
+        def fn(x, y):
+            return (x @ y).sum(dim=1), x + 1.0
+
+        x = torch.arange(12.0, device="cuda").reshape(3, 4)
+        y = torch.ones((4, 5), device="cuda")
+        t0 = time.perf_counter()
+        ex, c1 = aot.cached_export("smoke", fn, (x, y), directory=d)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ex2, c2 = aot.cached_export("smoke", fn, (x, y), directory=d)
+        load_s = time.perf_counter() - t0
+        ref = fn(x, y)
+        same = all(torch.equal(p, q) for e in (ex, ex2)
+                   for p, q in zip(e(x, y), ref))
+        check(not c1 and c2 and same,
+              f"cached_export: was_cached {c1}, {c2}; equal {same}")
+        listed = sorted(os.listdir(d))
+        removed = aot.clear(d)
+        check(removed == 3, f"clear removed {removed} of {listed}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "aot", "cold_build_s": cold_s, "was_cached": cached,
+          "second_call_s": warm_s, "was_cached_second": cached2,
+          "launches": launches, "call_equals_impl": True,
+          "export_s": export_s, "load_s": load_s, "cleared": removed,
+          "cleared_entries": listed, "card": state["name"],
+          "smi": state["smi"]})
+
+
 def phase_cli(state):
     """python -m imagestitch_tpu_torch.cli demo --size 1080x1920 on the
     card: a PNG wider than 1920, launches of one stitch_pair (detector maps
@@ -2377,7 +2759,9 @@ def phase_stages(state):
         "card": state["name"], "smi": state["smi"]})
 
 
-def main() -> int:
+def main(only=()) -> int:
+    """Every phase; with phase names (`only`), the device and build phases
+    and those alone, and no kernels line."""
     state = {}
     phases = [("device", phase_device), ("build", phase_build),
               ("detect", phase_detect), ("warp", phase_warp),
@@ -2399,19 +2783,29 @@ def main() -> int:
               ("host_seam_reference", phase_host_seam_reference),
               ("graphcut_path", phase_graphcut_path),
               ("scans_reference", phase_scans_reference),
-              ("scans_path", phase_scans_path), ("cli", phase_cli),
+              ("scans_path", phase_scans_path),
+              ("pano_reference", phase_pano_reference),
+              ("pano_path", phase_pano_path),
+              ("sharded_path", phase_sharded_path), ("aot", phase_aot),
+              ("cli", phase_cli),
               ("stages", phase_stages), ("kernel_times", phase_kernel_times)]
+    unknown = set(only) - {name for name, _ in phases}
+    if unknown:
+        print(f"chip_smoke: no phase {sorted(unknown)}", file=sys.stderr)
+        return 2
     for name, fn in phases:
+        if only and name not in ("device", "build", *only):
+            continue
         try:
-            if name == "detect":
-                state["rot"] = _rotation_pair_1080()
             fn(state)
         except Exception as e:          # any failure ends the run, non-zero
             traceback.print_exc()
             print(f"chip_smoke: phase {name} failed: {e}", file=sys.stderr)
             return 1
     import torch
-    emit({"kernels": [state["k1"], state["k2"], state["k3"], state["k4"]]})
+    if not only:
+        emit({"kernels": [state["k1"], state["k2"], state["k3"],
+                          state["k4"]]})
     print(state["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -2420,4 +2814,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

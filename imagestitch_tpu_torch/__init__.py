@@ -14,7 +14,10 @@ views of any sizes and layout, `stitch_chain(images)` for N same-size
 views in sequence, `stitch_pairs_batched(pairs)` for a batch of pairs,
 `StreamStitcher(config)` to calibrate a fixed rig once and compose every
 frame set after, and `Timelapser` to place frames alone on one canvas.
-The command line: `python -m imagestitch_tpu_torch.cli stitch|demo`.
+Over several devices: `parallel` (a mesh, `stitch_pairs_sharded`,
+`stitch_chain_pano` and its split); the libraries built ahead of time:
+`aot`. The command line: `python -m imagestitch_tpu_torch.cli
+stitch|demo`.
 """
 
 from imagestitch_tpu_torch.config import (

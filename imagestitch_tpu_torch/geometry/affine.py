@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from imagestitch_tpu_torch.config import RansacConfig
-from imagestitch_tpu_torch.geometry.ransac import RansacResult
+from imagestitch_tpu_torch.geometry.ransac import (RansacResult,
+                                                   score_hypotheses)
 
 
 def _promote(P: torch.Tensor) -> torch.Tensor:
@@ -144,13 +145,10 @@ def find_affine(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor,
     hyp_ok = distinct & ok_solve & (nvalid >= P)
 
     thresh2 = float(cfg.reproj_threshold ** 2)
-    inl = (affine_error_sq(As, src, dst) <= thresh2) & mask[None, :]
-    counts = inl.to(torch.int32).sum(dim=1)
-    counts = torch.where(hyp_ok, counts, torch.full_like(counts, -1))
-    best = torch.argmax(counts)                         # first maximum
-    best_count = counts[best]
+    best, best_count, inliers0 = score_hypotheses(
+        As, hyp_ok, src, dst, mask, thresh2, affine_error_sq)
 
-    A_fit, fit_ok = ls_affine(src, dst, inl[best].to(torch.float32),
+    A_fit, fit_ok = ls_affine(src, dst, inliers0.to(torch.float32),
                               partial)
     A_ref = torch.where(fit_ok, A_fit, As[best])
     inliers = (affine_error_sq(A_ref, src, dst) <= thresh2) & mask

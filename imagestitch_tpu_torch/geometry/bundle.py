@@ -12,6 +12,8 @@ in the JAX package).
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 from torch.func import jacfwd
@@ -64,6 +66,13 @@ def _rays(params: torch.Tensor, pts: torch.Tensor, ppx, ppy) -> torch.Tensor:
     return rays / torch.linalg.norm(rays, dim=-1, keepdim=True)
 
 
+# torch's forward-mode autodiff numbers its dual levels in process-wide
+# state: two threads inside jacfwd at once (the shards of a mesh on
+# distinct devices) delete each other's levels, so one Jacobian is taken
+# at a time
+_JACOBIAN_LOCK = threading.Lock()
+
+
 def _lm_minimize(residuals, x0: torch.Tensor, iters: int) -> torch.Tensor:
     """Levenberg–Marquardt on a dense residual vector: damped normal
     equations, λ·0.5 on an accepted step and λ·4 on a rejected one; stops
@@ -80,7 +89,8 @@ def _lm_minimize(residuals, x0: torch.Tensor, iters: int) -> torch.Tensor:
     err = err_of(x0)
     for _ in range(iters):
         r = residuals(x)
-        J = jac(x)
+        with _JACOBIAN_LOCK:
+            J = jac(x)
         A = J.T @ J
         g = J.T @ r
         D = torch.diag(torch.diagonal(A).clamp(min=1e-8))

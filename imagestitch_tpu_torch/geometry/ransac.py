@@ -18,6 +18,7 @@ import torch
 from imagestitch_tpu_torch.config import RansacConfig
 from imagestitch_tpu_torch.geometry.homography import (
     dlt_homography, lm_refine_homography, reproj_error_sq, solve_h4p)
+from imagestitch_tpu_torch.parallel.mesh import chunk_ranges, model_devices
 
 _TRIPLES = ((0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3))
 
@@ -53,6 +54,50 @@ def _check_subset(src4, dst4, idx4) -> torch.Tensor:
     return distinct & noncol & orient
 
 
+def _score_chunk(Hs, hyp_ok, src, dst, mask, thresh2: float, error_sq):
+    """Inlier masks (B, N) and counts (B,) of (B, 3, 3) hypotheses; -1
+    where a hypothesis is not ok."""
+    inl = (error_sq(Hs, src, dst) <= thresh2) & mask[None, :]
+    counts = inl.to(torch.int32).sum(dim=1)
+    return inl, torch.where(hyp_ok, counts, torch.full_like(counts, -1))
+
+
+def score_hypotheses(Hs: torch.Tensor, hyp_ok: torch.Tensor,
+                     src: torch.Tensor, dst: torch.Tensor,
+                     mask: torch.Tensor, thresh2: float, error_sq):
+    """The winner of (B, 3, 3) hypotheses over (N, 2) points whose squared
+    transfer errors are `error_sq(Hs, src, dst)` (B, N): (index, inlier
+    count, inlier mask (N,)), the first maximum of the counts as
+    `jnp.argmax` picks it.
+
+    With an active mesh whose "model" axis has k > 1 devices
+    (`parallel.mesh.use_mesh`), the hypotheses are scored in k contiguous
+    chunks, one on each model device, and each chunk's first maximum
+    (its count, index and inlier row) is gathered to the points' device:
+    the first chunk holding the largest count holds the same index that
+    one argmax over all counts gives."""
+    devs = model_devices()
+    if len(devs) <= 1:
+        inl, counts = _score_chunk(Hs, hyp_ok, src, dst, mask, thresh2,
+                                   error_sq)
+        best = torch.argmax(counts)                     # first maximum
+        return best, counts[best], inl[best]
+    home = src.device
+    tops, idxs, rows = [], [], []
+    for dev, (a, b) in zip(devs, chunk_ranges(Hs.shape[0], len(devs))):
+        if a == b:
+            continue
+        inl, counts = _score_chunk(Hs[a:b].to(dev), hyp_ok[a:b].to(dev),
+                                   src.to(dev), dst.to(dev), mask.to(dev),
+                                   thresh2, error_sq)
+        j = torch.argmax(counts)
+        tops.append(counts[j].to(home))
+        idxs.append((j + a).to(home))
+        rows.append(inl[j].to(home))
+    c = torch.argmax(torch.stack(tops))                 # first chunk
+    return torch.stack(idxs)[c], torch.stack(tops)[c], torch.stack(rows)[c]
+
+
 def find_homography(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor,
                     cfg: RansacConfig = RansacConfig(),
                     u: torch.Tensor | None = None,
@@ -82,15 +127,10 @@ def find_homography(src: torch.Tensor, dst: torch.Tensor, mask: torch.Tensor,
     hyp_ok = good & ok_solve & (nvalid >= 4)
 
     thresh2 = float(cfg.reproj_threshold ** 2)
-    errs = reproj_error_sq(Hs, src[None], dst[None])    # (B, N)
-    inl = (errs <= thresh2) & mask[None, :]
-    counts = inl.to(torch.int32).sum(dim=1)
-    counts = torch.where(hyp_ok, counts, torch.full_like(counts, -1))
-
-    best = torch.argmax(counts)                         # first maximum
+    best, best_count, inliers0 = score_hypotheses(
+        Hs, hyp_ok, src, dst, mask, thresh2,
+        lambda H, s, d: reproj_error_sq(H, s[None], d[None]))
     H_best = Hs[best]
-    best_count = counts[best]
-    inliers0 = inl[best]
 
     H_fit, fit_ok = dlt_homography(src, dst, inliers0)
     H_fit = torch.where(fit_ok, H_fit, H_best)

@@ -149,6 +149,23 @@ def match_pair(f1: ImageFeatures, f2: ImageFeatures, src_idx: int = 0,
         h_valid=h_ok, confidence=conf)
 
 
+def draw_pair(cfg: MatcherConfig, rcfg: RansacConfig,
+              generator: torch.Generator | None, device):
+    """One pair's RANSAC draws taken from `generator` on `device` as
+    `match_pair` takes them when none are injected: (u_first, u_refit) of
+    shapes (num_hypotheses, 4) and (min(256, num_hypotheses), 4) for the
+    homography; for the affine motions (num_hypotheses, 2 or 3) and
+    None. Drawing every pair's first, in pair order, lets a split over
+    devices give each pair the draws the unsplit run gives it."""
+    B = rcfg.num_hypotheses
+    if cfg.motion == "homography":
+        u_first = torch.rand((B, 4), generator=generator, device=device)
+        return u_first, torch.rand((min(REFIT_HYPOTHESES, B), 4),
+                                   generator=generator, device=device)
+    p = 2 if cfg.motion == "affine_partial" else 3
+    return torch.rand((B, p), generator=generator, device=device), None
+
+
 def pair_list(n: int, range_width: int = -1) -> list[tuple[int, int]]:
     """The (i, j) pairs, i < j, that `match_all` matches: all of them, or
     those with j - i <= range_width when range_width > 0."""

@@ -49,8 +49,8 @@ def _build(out_dir: Path) -> None:
     if gxx is None:
         raise RuntimeError("g++ not found: the native seam runtime "
                            "(imagestitch_tpu_torch/native) cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix=".tmp-native-", dir=BUILD_DIR))
+    out_dir.parent.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix=".tmp-native-", dir=out_dir.parent))
     try:
         res = subprocess.run(
             [gxx, *GXX_FLAGS, *(str(HERE / s) for s in SOURCES), "-o",
@@ -69,17 +69,27 @@ def _build(out_dir: Path) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def load_library() -> ctypes.CDLL:
+def library_path(build_root: Path | None = None) -> Path:
+    """Where the library of the current sources and flags lives under
+    `build_root` (default: `build/` beside the package)."""
+    root = Path(build_root) if build_root is not None else BUILD_DIR
+    return root / f"native-{_digest()}" / LIB_NAME
+
+
+def load_library(build_root: Path | None = None) -> ctypes.CDLL:
     """Build (if needed) and load the native library; raises when g++ or
-    the build fails."""
+    the build fails. `build_root`: the directory the library is built in
+    (default: `build/`); a process loads the library once, and a later
+    call with another root only builds there."""
     global _lib
+    if _lib is not None and build_root is None:
+        return _lib
     with _lock:
+        so = library_path(build_root)
+        if not so.exists():
+            _build(so.parent)
         if _lib is not None:
             return _lib
-        out_dir = BUILD_DIR / f"native-{_digest()}"
-        so = out_dir / LIB_NAME
-        if not so.exists():
-            _build(out_dir)
         lib = ctypes.CDLL(str(so))
         u8p = ctypes.POINTER(ctypes.c_uint8)
         i32p = ctypes.POINTER(ctypes.c_int32)

@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -31,7 +32,18 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "--fmad=false",
 LIB_NAME = "libimagestitch_kernels.so"
 
 _lib: ctypes.CDLL | None = None
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
 build_info: dict = {}
+
+
+def count_launch(namespace: dict) -> None:
+    """Add one to a wrapper module's `launch_count` (its `globals()`)
+    under a lock: shards on distinct devices launch from their own threads
+    (`parallel.mesh.run_on_devices`), and `+= 1` on a module global is a
+    read, an add and a write that another thread can interleave."""
+    with _count_lock:
+        namespace["launch_count"] += 1
 
 
 def _nvcc() -> str:
@@ -83,38 +95,50 @@ def _compile(out_dir: Path, sources: list[Path]) -> str:
     return "\n".join(log)
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library. Raises when nvcc or
-    the build fails; there is no fallback."""
+def library_path(build_root: Path | None = None) -> Path:
+    """Where the library of the current sources and flags lives under
+    `build_root` (default: `build/` beside the package)."""
+    root = Path(build_root) if build_root is not None else BUILD_DIR
+    return root / f"kernels-{_digest(_sources())}" / LIB_NAME
+
+
+def load_library(build_root: Path | None = None) -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library. `build_root`: the
+    directory the library is built in (default: `build/`); a process
+    loads the library once, and a later call with another root only
+    builds there. Raises when nvcc or the build fails; there is no
+    fallback."""
     global _lib
-    if _lib is not None:
+    if _lib is not None and build_root is None:
         return _lib
-    sources = _sources()
-    digest = _digest(sources)
-    out_dir = BUILD_DIR / f"kernels-{digest}"
-    so = out_dir / LIB_NAME
-    t0 = time.perf_counter()
-    built = False
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = Path(tempfile.mkdtemp(prefix=".tmp-", dir=BUILD_DIR))
-        try:
-            log = _compile(tmp, sources)
-            (tmp / "build.log").write_text(log)
+    with _load_lock:
+        sources = _sources()
+        so = library_path(build_root)
+        out_dir = so.parent
+        t0 = time.perf_counter()
+        built = False
+        if not so.exists():
+            out_dir.parent.mkdir(parents=True, exist_ok=True)
+            tmp = Path(tempfile.mkdtemp(prefix=".tmp-", dir=out_dir.parent))
             try:
-                tmp.rename(out_dir)
-            except OSError:
-                if not so.exists():   # lost a race only if the other won
-                    raise
-        finally:
-            shutil.rmtree(tmp, ignore_errors=True)
-        built = True
-    _lib = ctypes.CDLL(str(so))
-    log_path = out_dir / "build.log"
-    build_info.update(
-        seconds=time.perf_counter() - t0, built=built, path=str(so),
-        log=log_path.read_text() if log_path.exists() else "")
-    return _lib
+                log = _compile(tmp, sources)
+                (tmp / "build.log").write_text(log)
+                try:
+                    tmp.rename(out_dir)
+                except OSError:
+                    if not so.exists():   # lost a race only if the other
+                        raise             # one won
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            built = True
+        if _lib is not None:
+            return _lib
+        _lib = ctypes.CDLL(str(so))
+        log_path = out_dir / "build.log"
+        build_info.update(
+            seconds=time.perf_counter() - t0, built=built, path=str(so),
+            log=log_path.read_text() if log_path.exists() else "")
+        return _lib
 
 
 def check(status: int, what: str) -> None:

@@ -92,7 +92,6 @@ def detect_maps_levels_cuda(levels, threshold: float, block_size: int = 7,
     """One kernel launch over a list of (B, H_l, W_l) float32 contiguous
     CUDA tensors; returns [(nms_score, harris, blurred)] per level, views
     into one allocation that holds each level's three maps as a block."""
-    global launch_count
     levels = list(levels)
     B = _check_levels(levels)
     if block_size % 2 == 0 or not 1 <= block_size <= 7:
@@ -110,9 +109,10 @@ def detect_maps_levels_cuda(levels, threshold: float, block_size: int = 7,
         status = _fn()(ptrs, hs, ws, n, B, flat.data_ptr(),
                        float(threshold), block_size, float(k_harris), s4,
                        _taps(), stream)
-    from imagestitch_tpu_torch.ops.cuda_build import check
+    from imagestitch_tpu_torch.ops.cuda_build import (check,
+                                                       count_launch)
     check(status, "detect_maps kernel launch")
-    launch_count += 1
+    count_launch(globals())
     out, off = [], 0
     for img, size in zip(levels, sizes):
         out.append(flat[off:off + size].view((3,) + img.shape).unbind(0))

@@ -221,7 +221,6 @@ def _launch(base: torch.Tensor, first_octave: bool, S: int, sigma0: float,
             contrast_thresh: float, edge_ratio: float, variant=None):
     """One launch of the kernel; returns (dog, score, gx, gy, gS), views
     into one allocation."""
-    global launch_count
     if not base.is_cuda:
         raise ValueError("sift_octave_maps_cuda needs a CUDA tensor")
     if base.dtype != torch.float32 or base.ndim != 2:
@@ -252,9 +251,10 @@ def _launch(base: torch.Tensor, first_octave: bool, S: int, sigma0: float,
                        gx.data_ptr(), gy.data_ptr(), gs.data_ptr(), H, W,
                        S, int(first_octave), taps, lens, halos, ct_half,
                        float(edge_ratio), r1sq, variant, stream)
-    from imagestitch_tpu_torch.ops.cuda_build import check
+    from imagestitch_tpu_torch.ops.cuda_build import (check,
+                                                       count_launch)
     check(status, "sift_octave kernel launch")
-    launch_count += 1
+    count_launch(globals())
     return dog, score, gx, gy, gs[0]
 
 

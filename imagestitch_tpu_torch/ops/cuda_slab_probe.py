@@ -68,7 +68,6 @@ def slab_probe_cuda(src: torch.Tensor, h: int, tiled: bool,
                     steps: int = STEPS) -> torch.Tensor:
     """Launch the CUDA kernel on a contiguous, 16-byte aligned float32 CUDA
     source; returns the last step's (8, 128) sum."""
-    global launch_count
     _check_source(src, "slab_probe_cuda")
     check_args(src, h, tiled, steps)
     ny, nx = window_counts(*source_hw(src, tiled), h)
@@ -86,9 +85,10 @@ def slab_probe_cuda(src: torch.Tensor, h: int, tiled: bool,
     if status < 0:
         raise RuntimeError(f"slab_probe: cuTensorMapEncodeTiled failed with "
                            f"CUresult {-status} for {spec}")
-    from imagestitch_tpu_torch.ops.cuda_build import check
+    from imagestitch_tpu_torch.ops.cuda_build import (check,
+                                                       count_launch)
     check(status, "slab_probe kernel launch")
-    launch_count += 1
+    count_launch(globals())
     return out
 
 

@@ -144,11 +144,11 @@ def warp_batched_cuda(imgs: torch.Tensor, k_rinvs: torch.Tensor, scale,
                       src_sizes=None):
     """Launch the CUDA warp on (N, H, W[, C]) float32 contiguous CUDA
     images. Returns (out (N, Hc, Wc[, C]) float32, valid (N, Hc, Wc) bool)."""
-    global launch_count
     args, out, valid, _kept = _args(imgs, k_rinvs, scale, corners, roi_uvs,
                                     canvas_hw, kind, src_sizes)
     _launch(args, imgs.device)
-    launch_count += 1
+    from imagestitch_tpu_torch.ops.cuda_build import count_launch
+    count_launch(globals())
     if imgs.ndim == 3:
         out = out[..., 0]
     return out, valid

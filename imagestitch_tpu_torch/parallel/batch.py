@@ -13,22 +13,28 @@ same functions as `stitch_pair_impl`;
 the bundle adjustment's LM loop reads its stop test back to the host at
 every step, so a batched adjuster is later work.
 
-`stitch_pairs_sharded` (the batch split over a device mesh) is not ported:
-it waits for more than one GPU.
+`stitch_pairs_sharded` splits the B pairs over a mesh's "data" axis: each
+data device runs `stitch_pairs_batched_impl` on its contiguous chunk (so
+K1 and K2 run once per shard), RANSAC scores its hypotheses over the
+"model" axis when the mesh has one, and the outputs are gathered to the
+mesh's first device in pair order.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from imagestitch_tpu_torch.config import PipelineConfig
 from imagestitch_tpu_torch.features import detect_batched
-from imagestitch_tpu_torch.matching.matcher import match_pairs
+from imagestitch_tpu_torch.matching.matcher import draw_pair, match_pairs
 from imagestitch_tpu_torch.ops.image import rgb_to_gray
+from imagestitch_tpu_torch.parallel.mesh import (Mesh, data_sharding,
+                                                 run_on_devices, use_mesh)
 from imagestitch_tpu_torch.pipeline import (
     _apply_exposure, _generator, _megapix_scale, _normalize_scans, _pano_canvas_shape, _refuse_host_seam, _seam_and_blend,
     _work_grays, pair_cameras, pair_metrics, resolve_device,
@@ -48,19 +54,72 @@ def stitch_pairs_batched(pairs, config: PipelineConfig | None = None,
     `device` (default: the CUDA card; with no card it raises). RANSAC
     draws come from a torch.Generator seeded with `seed`, pair after pair,
     unless `draws` maps pair b to its (u_first, u_refit)."""
+    cfg = _batch_config(config)
+    dev = resolve_device(device)
+    x = _pairs_tensor(pairs, dev)
+    return stitch_pairs_batched_impl(x, cfg, draws, _generator(dev, seed))
+
+
+def _batch_config(config: PipelineConfig | None) -> PipelineConfig:
+    """orient "auto" pinned to "vertical"; a host seam raises."""
     cfg = config or PipelineConfig()
     if cfg.seam.orient == "auto":
         cfg = cfg.replace(seam=dataclasses.replace(cfg.seam,
                                                    orient="vertical"))
     _refuse_host_seam(cfg)
-    dev = resolve_device(device)
+    return cfg
+
+
+def _pairs_tensor(pairs, dev: torch.device) -> torch.Tensor:
     set_full_precision()
     x = torch.as_tensor(np.asarray(pairs) if not isinstance(
         pairs, torch.Tensor) else pairs, device=dev).to(torch.float32)
     if x.ndim != 5 or x.shape[1] != 2:
         raise ValueError(f"pairs: (B, 2, H, W, C) expected, got "
                          f"{tuple(x.shape)}")
-    return stitch_pairs_batched_impl(x, cfg, draws, _generator(dev, seed))
+    return x
+
+
+def stitch_pairs_sharded(pairs, mesh: Mesh,
+                         config: PipelineConfig | None = None, seed: int = 0,
+                         draws=None):
+    """`stitch_pairs_batched` with the B pairs split over `mesh`'s "data"
+    axis and each pair's RANSAC hypotheses over its "model" axis, if it
+    has one. Returns the same tensors on the mesh's first device, in pair
+    order.
+
+    Every pair's draws are taken first, in pair order, from a
+    torch.Generator seeded with `seed` on the first device (unless
+    `draws` maps pair b to its (u_first, u_refit)), and each shard gets
+    its pairs' draws: the result is the unsplit batch's."""
+    cfg = _batch_config(config)
+    home = mesh.first()
+    x = _pairs_tensor(pairs, home)
+    B = x.shape[0]
+    if draws is None:
+        fcfg = _normalize_scans(cfg)
+        gen = _generator(home, seed)
+        draws = [draw_pair(fcfg.matcher, fcfg.ransac, gen, home)
+                 for _ in range(B)]
+    sharding = data_sharding(mesh, 5)
+
+    def shard(d, chunk, a):
+        with use_mesh(mesh.row("data", d)):
+            return stitch_pairs_batched_impl(
+                chunk, cfg, {k: draws[a + k] for k in range(len(chunk))})
+
+    outs = run_on_devices([
+        (dev, functools.partial(shard, d, chunk, a))
+        for d, (dev, chunk, (a, _)) in enumerate(zip(
+            sharding.devices, sharding.split(x), sharding.ranges(B)))
+        if len(chunk)])
+
+    def gather(parts):
+        return sharding.gather(parts, home)
+
+    return (gather([o[0] for o in outs]), gather([o[1] for o in outs]),
+            gather([o[2] for o in outs]),
+            {k: gather([o[3][k] for o in outs]) for k in outs[0][3]})
 
 
 def stitch_pairs_batched_impl(pairs: torch.Tensor, cfg: PipelineConfig,

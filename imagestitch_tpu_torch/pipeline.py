@@ -216,16 +216,18 @@ def _pano_canvas_shape(hw: tuple[int, int], n_images: int,
 
 def _warp_all_shared(images: torch.Tensor, cams: CameraParams, scale,
                      canvas_hw: tuple[int, int], cfg: PipelineConfig,
-                     src_sizes: np.ndarray | None = None):
+                     src_sizes: np.ndarray | None = None, warp=None):
     """Warp N images into one shared pano frame whose corner is the union
-    of the per-image ROI corners, in one launch of the warp kernel.
+    of the per-image ROI corners, in one launch of the warp kernel
+    (`warp`: a function of `warp_views`' arguments, by default
+    `warp_views` itself).
     `src_sizes` (host (N, 2) [h, w]) gives true sizes of images
     edge-padded to a common shape. Returns (warped (N, Hc, Wc, C), masks,
     corner (2,) int32, overflow, roi_uvs (N, 4))."""
     n = images.shape[0]
     k_rinvs, corner, roi_uvs, overflow = warp_inputs(
         cams, scale, images.shape[1:3], n, canvas_hw, cfg, src_sizes)
-    warped, masks = warp_views(
+    warped, masks = (warp or warp_views)(
         images.contiguous(), k_rinvs, scale, corner.expand(n, 2), roi_uvs,
         canvas_hw, cfg.warp.kind, src_sizes=src_sizes)
     return warped, masks, corner, overflow, roi_uvs
@@ -811,9 +813,21 @@ def _adjust(cams: CameraParams, feats, mis, pairs, pair_valid,
                          cfg.camera.ba_iters, cfg.camera.ba_kind)
 
 
+class OneDevice:
+    """The per-view and per-pair steps of the chain front on the images'
+    own device: `detect_batched` on all views, `match_pairs` on all
+    pairs and `warp_views` of all views in one launch. `parallel.pano`
+    splits the same three steps over a mesh."""
+
+    detect = staticmethod(detect_batched)
+    match = staticmethod(match_pairs)
+    warp = staticmethod(warp_views)
+
+
 def register_chain(imgs: torch.Tensor,
                    cfg: PipelineConfig = PipelineConfig(), draws=None,
-                   generator: torch.Generator | None = None):
+                   generator: torch.Generator | None = None,
+                   steps=OneDevice):
     """Stages 1-5 of the fixed-N chain on (N, H, W, 3) float32 images on
     one device: one batched detect (at the work scale), the consecutive
     pairs i -> i+1 (and, with cfg.chain_splice and N >= 3, the skip pairs
@@ -828,16 +842,17 @@ def register_chain(imgs: torch.Tensor,
     from `generator`. In SCANS mode (`cfg` normalized) the cameras are
     global affines chained along the pairs (`_chain_affines`, with the
     skip pairs bridging one broken link), with no bundle adjustment.
+    `steps` detects and matches (`OneDevice`, or a split over a mesh).
     Returns (feats, mis (the consecutive pairs), cams, reachable (N,)
     bool)."""
     N, H, W = imgs.shape[:3]
     dev = imgs.device
     ws = _megapix_scale(cfg.work_megapix, (H, W))
-    feats = detect_batched(_work_grays(rgb_to_gray(imgs), (H, W), ws),
-                           cfg.detector)
+    feats = steps.detect(_work_grays(rgb_to_gray(imgs), (H, W), ws),
+                         cfg.detector)
 
     def match(pairs):
-        return match_pairs(feats, pairs, cfg.matcher, cfg.ransac, draws,
+        return steps.match(feats, pairs, cfg.matcher, cfg.ransac, draws,
                            generator)
 
     def good_of(mis):
@@ -884,20 +899,23 @@ def register_chain(imgs: torch.Tensor,
 def stitch_chain_front_impl(imgs: torch.Tensor,
                             cfg: PipelineConfig = PipelineConfig(),
                             draws=None,
-                            generator: torch.Generator | None = None):
+                            generator: torch.Generator | None = None,
+                            steps=OneDevice):
     """Stages 1-7 of the fixed-N chain on (N, H, W, 3) images on one
     device: `register_chain`, then one warp launch for all N views (the
     unreachable ones masked out) and gain compensation; SCANS mode is
-    normalized here. Returns (warped (N, Hc, Wc, 3), masks (N, Hc, Wc),
-    corner, metrics)."""
+    normalized here. `steps`: detect, match and warp (`OneDevice`, or a
+    split over a mesh). Returns (warped (N, Hc, Wc, 3), masks (N, Hc,
+    Wc), corner, metrics)."""
     cfg = _normalize_scans(cfg)
     N, H, W = imgs.shape[:3]
     imgs = imgs.to(torch.float32)
-    _, mis, cams, reachable = register_chain(imgs, cfg, draws, generator)
+    _, mis, cams, reachable = register_chain(imgs, cfg, draws, generator,
+                                             steps)
     scale = warp_scale(cams)
     canvas_hw = _pano_canvas_shape((H, W), N, cfg)
     warped, masks, corner, overflow, roi_uvs = _warp_all_shared(
-        imgs, cams, scale, canvas_hw, cfg)
+        imgs, cams, scale, canvas_hw, cfg, warp=steps.warp)
     masks = masks & reachable[:, None, None]
     warped = _apply_exposure(warped, masks, cfg)
     metrics = {

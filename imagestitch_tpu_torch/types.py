@@ -98,3 +98,9 @@ def index(batch, i: int):
     axis)."""
     return type(batch)(**{f.name: getattr(batch, f.name)[i]
                           for f in dataclasses.fields(batch)})
+
+
+def to_device(item, device):
+    """An item of this module's classes with every field on `device`."""
+    return type(item)(**{f.name: getattr(item, f.name).to(device)
+                         for f in dataclasses.fields(item)})

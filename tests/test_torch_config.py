@@ -157,6 +157,21 @@ def test_port_import_loads_no_jax_modules():
     assert out.stdout.strip() == "[]", out.stdout
 
 
+def test_every_jax_module_has_a_counterpart():
+    """Each module of imagestitch_tpu/ has one in the port at the same
+    path, a Pallas kernel module (`ops/pallas_<k>.py`) its CUDA wrapper
+    (`ops/cuda_<k>.py`)."""
+    jax_pkg = REPO / "imagestitch_tpu"
+    missing = []
+    for p in sorted(jax_pkg.rglob("*.py")):
+        rel = p.relative_to(jax_pkg)
+        if rel.name.startswith("pallas_"):
+            rel = rel.with_name("cuda_" + rel.name[len("pallas_"):])
+        if not (PORT / rel).exists():
+            missing.append(str(rel))
+    assert not missing, missing
+
+
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")

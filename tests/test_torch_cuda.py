@@ -727,3 +727,90 @@ def test_detailed_stitcher_on_card_matches_cpu_and_counts_launches(cuda):
     assert abs(mc["focal"] - mp["focal"]) <= 1e-3 * mp["focal"]
     assert pc.shape == pp.shape
     assert np.abs(pc.astype(float) - pp.astype(float)).mean() < 1.0
+
+
+def _outputs_equal(a, b):
+    """(pano, valid, corner, metrics) tensors equal bit for bit."""
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)
+    assert sorted(a[3]) == sorted(b[3])
+    for k in a[3]:
+        assert torch.equal(a[3][k], b[3][k]), k
+
+
+@pytest.mark.parametrize("axes", [{"data": 2}, {"data": 2, "model": 2}],
+                         ids=str)
+def test_sharded_pairs_on_repeated_card_mesh(cuda, axes):
+    """stitch_pairs_sharded on a mesh that names the card 2 or 4 times (a
+    logic check of the split on one card): equal to stitch_pairs_batched
+    with the same seed, bit for bit, with the detector maps and the warp
+    launched once per data shard."""
+    from imagestitch_tpu_torch.parallel import (make_mesh,
+                                                stitch_pairs_batched,
+                                                stitch_pairs_sharded)
+    from imagestitch_tpu_torch.utils.io import synthetic_pair
+    pairs = np.stack([np.stack(synthetic_pair(192, 256, overlap=0.4,
+                                              seed=s)[:2]) for s in range(4)])
+    ref = stitch_pairs_batched(pairs, seed=2, device=cuda)
+    mesh = make_mesh(axes, [cuda] * 4)
+    c0 = _counts()
+    out = stitch_pairs_sharded(pairs, mesh, seed=2)
+    assert tuple(y - x for x, y in zip(c0, _counts())) == (2, 0, 2)
+    _outputs_equal(out, ref)
+
+
+def test_chain_pano_sharded_on_repeated_card_mesh(cuda):
+    """stitch_chain_pano on a panning camera's four 160x224 views, on the
+    card against the CPU with the same draws (counts, reachable and corner
+    equal, focal within 1e-3, valid IoU >= 0.999, canvas within 0.5 on
+    average where both cover), and split over a mesh that names the card
+    twice: bit for bit, K1 and K2 once per data shard."""
+    from imagestitch_tpu_torch.parallel import (make_mesh, stitch_chain_pano,
+                                                stitch_chain_pano_sharded)
+    from imagestitch_tpu_torch.utils.io import synthetic_pan_sequence
+    views = synthetic_pan_sequence(4)
+    g = torch.Generator().manual_seed(3)
+    draws = {(i, i + 1): (torch.rand((2048, 4), generator=g),
+                          torch.rand((256, 4), generator=g))
+             for i in range(3)}
+    c0 = _counts()
+    pc, vc, cc, mc = stitch_chain_pano(views, device=cuda, draws=draws)
+    assert tuple(y - x for x, y in zip(c0, _counts())) == (1, 0, 1)
+    pp, vp, cp, mp = stitch_chain_pano(views, device="cpu", draws=draws)
+    for k in ("num_inliers", "h_valid", "reachable"):
+        assert torch.equal(mc[k].cpu(), mp[k]), k
+    assert torch.equal(cc.cpu(), cp)
+    assert abs(float(mc["focal"]) - float(mp["focal"])) <= \
+        1e-3 * float(mp["focal"])
+    vc_, vp_ = vc.cpu(), vp
+    assert float((vc_ & vp_).sum()) / float((vc_ | vp_).sum()) >= 0.999
+    both = vc_ & vp_
+    assert float((pc.cpu() - pp).abs()[both].mean()) < 0.5
+    c0 = _counts()
+    out = stitch_chain_pano_sharded(views, make_mesh({"data": 2}, [cuda] * 2),
+                                    draws=draws)
+    assert tuple(y - x for x, y in zip(c0, _counts())) == (2, 0, 2)
+    _outputs_equal(out, (pc, vc, cc, mc))
+
+
+def test_hostseam_sharded_on_card_equals_split(cuda):
+    """stitch_pair_hostseam_sharded (graph cut) under a {"data": 2,
+    "model": 2} mesh of the card: equal to stitch_pair's split (its front
+    and `_host_seam_blend`) on the same draws."""
+    from imagestitch_tpu_torch import SeamConfig
+    from imagestitch_tpu_torch.parallel import (make_mesh,
+                                                stitch_pair_hostseam_sharded)
+    from imagestitch_tpu_torch.pipeline import (_host_seam_blend,
+                                                stitch_pair_front_impl)
+    a, b, _, _ = synthetic_rotation_pair(192, 256)
+    g = torch.Generator().manual_seed(1)
+    draws = (torch.rand((2048, 4), generator=g),
+             torch.rand((256, 4), generator=g))
+    cfg = PipelineConfig(seam=SeamConfig(kind="graphcut"))
+    mesh = make_mesh({"data": 2, "model": 2}, [cuda] * 4)
+    out = stitch_pair_hostseam_sharded(a, b, mesh, cfg, draws=draws)
+    warped, masks, corner, m = stitch_pair_front_impl(
+        torch.as_tensor(a, device=cuda), torch.as_tensor(b, device=cuda),
+        cfg, draws)
+    pano, valid, _ = _host_seam_blend(warped, masks, cfg)
+    _outputs_equal(out, (pano, valid, corner, m))
