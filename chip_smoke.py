@@ -185,19 +185,34 @@ result line is printed):
                 tensor function on the card; clear().
 29. cli       — `imagestitch_tpu_torch.cli demo --size 1080x1920` on the
                 card writes a PNG wider than 1920.
-30. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
+30. api_path  — the public one-image warp (`warp.warper.warp_image`) of a
+                1080p rotation view into 1458x4032: cylindrical, spherical
+                and plane one K2 launch each, bit for bit the plain path on
+                the card, and within tests/test_torch_warp.py's tolerance
+                of the CPU (its 5e-3 in coordinate ulps, 0.08 at 1920 px,
+                where both are valid); with a mask, nearest sampling or
+                mercator no
+                launch; use_kernel=True on a CPU tensor raises; every
+                subpackage's `__all__` imports.
+31. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
                 of the 1080p SIFT plane stitch, and the device's busy share
-                of one stitch of each (torch.profiler, after the timing).
-31. kernel_times — K1's and K3's work for one stitch, the kernels alone from
+                of one stitch of each (torch.profiler, after the timing);
+                then one `record_function` range per StageTimer stage
+                entered in a traced stitch() of four 1080p views and
+                stitch_pair of the rotation pair, with their ms.
+32. kernel_times — K1's and K3's work for one stitch, the kernels alone from
                 torch.profiler kernel events (median of 20 rounds) with L2
                 flushed by a 256 MB write and warm; K1 also as ten
                 one-level launches, as the chain's one launch for 8 views,
                 as the batches' for 16 1080p and 64 480x640 views and as
                 the detailed path's for four 581x1033 work views; K3
                 also by kernel name and by octave, and the CUDA kernels the
-                trace shows per stitch (8). Last, since once the profiler
-                has traced the card, later launches cost the host more.
-32. kernels   — one line {"kernels": [...]}: launches on the main path
+                trace shows per stitch (8); K2 at N=1 through
+                `ops.cuda_warp.warp` (api_path's cylindrical call), flushed
+                and warm, beside its bound and F.grid_sample. Last, since
+                once the profiler has traced the card, later launches cost
+                the host more.
+33. kernels   — one line {"kernels": [...]}: launches on the main path
                 (`launches`) and on each path (`launches_by_path`, counted
                 over the path's run), error against the plain version,
                 kernel / plain / library ms and the least time the card
@@ -493,6 +508,7 @@ def phase_warp(state):
     a = torch.as_tensor(img1).cuda().float()
     b = torch.as_tensor(img2).cuda().float()
     _, _, _, cams = register_pair(a, b, cfg, generator=gen)
+    state["rot_cams"] = cams
     scale = warp_scale(cams)
     canvas = _pano_canvas_shape((1080, 1920), 2, cfg)
     k_rinvs, corner, roi_uvs, _ = warp_inputs(cams, scale, (1080, 1920), 2,
@@ -2603,6 +2619,182 @@ def phase_cli(state):
           "launches": launches})
 
 
+API_CANVAS = (1458, 4032)      # the 1080p rotation pair's pano canvas
+
+
+def _subpackage_exports():
+    """Every name of every `__all__` of the port's package and its
+    subpackages imports: the lists the port keeps of the JAX package's
+    public names (held against it on the CPU by tests/test_torch_api.py).
+    Returns {subpackage: number of names}."""
+    import importlib
+    import pkgutil
+    import imagestitch_tpu_torch as pkg
+    subs = [""] + sorted(m.name for m in pkgutil.iter_modules(pkg.__path__)
+                         if m.ispkg)
+    counts = {}
+    for sub in subs:
+        mod = importlib.import_module(
+            "imagestitch_tpu_torch" + ("." + sub if sub else ""))
+        names = list(getattr(mod, "__all__", ()))
+        missing = [n for n in names if not hasattr(mod, n)]
+        check(not missing, f"imagestitch_tpu_torch.{sub}: {missing} do not "
+              "import")
+        counts[sub or "imagestitch_tpu_torch"] = len(names)
+    check(counts["imagestitch_tpu_torch"] > 0 and counts.get("warp", 0) > 0,
+          f"exports {counts}")
+    return counts
+
+
+def phase_api_path(state):
+    """The public one-image warp, `warp.warper.warp_image`, of the first
+    1080p rotation view with its camera from the main-path geometry, into
+    the 1458x4032 canvas: for cylindrical, spherical and plane one K2
+    launch (through `ops.cuda_warp.warp`), the image, mask, corner and size
+    equal to `use_kernel=False` on the card bit for bit, and the same call
+    on the CPU within tests/test_torch_warp.py's tolerance (masks differ
+    only within 1e-3 px of the validity boundary; values, where both are
+    valid, within its 5e-3 counted in float32 ulps of a source coordinate
+    at its 80-px views, which is 16 times as many at this view's 1920 px:
+    0.08); with `mask=`, `interp="nearest"` and the
+    mercator projector no launch; `use_kernel=True` on a CPU tensor
+    raises; every subpackage's exports import. Launch counts reset before
+    each call and read after it."""
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch.pipeline import warp_scale
+    from imagestitch_tpu_torch.testing import near_validity_boundary
+    from imagestitch_tpu_torch.warp.projectors import _camera_mats
+    from imagestitch_tpu_torch.warp.warper import (roi_bounds,
+                                                   warp_batched_plain,
+                                                   warp_image)
+    img1, img2 = state["rot"][:2]
+    if "rot_cams" not in state:          # run alone: register the pair
+        from imagestitch_tpu_torch.config import PipelineConfig
+        from imagestitch_tpu_torch.pipeline import register_pair
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        state["rot_cams"] = register_pair(
+            torch.as_tensor(img1).cuda().float(),
+            torch.as_tensor(img2).cuda().float(), PipelineConfig(),
+            generator=gen)[3]
+    cams = state["rot_cams"]
+    img = torch.as_tensor(img1, device="cuda")          # uint8 (H, W, 3)
+    K, R = cams.K()[0], cams.R[0]
+    k_rinv = _camera_mats(K, R)[1]
+    scale = warp_scale(cams)
+    H, W = img.shape[:2]
+    val_tol = 5e-3 * float(np.spacing(np.float32(max(H, W)))
+                           / np.spacing(np.float32(80)))
+    fields = ("image", "mask", "corner", "size")
+    total, kinds = {}, {}
+
+    def counted(call):
+        _reset_counts()
+        out = call()
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        _add_counts(total, launches)
+        return out, launches
+
+    for kind in ("cylindrical", "spherical", "plane"):
+        rk, launches = counted(lambda: warp_image(img, K, R, scale,
+                                                  API_CANVAS, kind))
+        want = {"detect_maps": 0, "sift_octave_maps": 0, "warp_batched": 1,
+                "slab_probe": 0}
+        check(launches == want, f"{kind}: launches {launches}, want {want}")
+        rp, launches = counted(lambda: warp_image(
+            img, K, R, scale, API_CANVAS, kind, use_kernel=False))
+        check(launches["warp_batched"] == 0, f"{kind}: plain launched K2")
+        unequal = [f for f in fields
+                   if not torch.equal(getattr(rk, f), getattr(rp, f))]
+        check(not unequal, f"{kind}: kernel route differs from the plain "
+              f"path in {unequal}")
+        rc = warp_image(img.cpu(), K.cpu(), R.cpu(), scale.cpu(),
+                        API_CANVAS, kind, use_kernel=False)
+        check(torch.equal(rc.corner, rk.corner.cpu())
+              and torch.equal(rc.size, rk.size.cpu()),
+              f"{kind}: corner/size card {rk.corner.tolist()} "
+              f"{rk.size.tolist()} vs CPU {rc.corner.tolist()} "
+              f"{rc.size.tolist()}")
+        near = near_validity_boundary(k_rinv[None], scale, rk.corner[None],
+                                      API_CANVAS, kind, [(H, W)])[0].cpu()
+        vk, vc = rk.mask.cpu(), rc.mask
+        bad = int(((vk != vc) & ~near).sum())
+        both = vk & vc
+        err = float((rk.image.cpu() - rc.image).abs()[both].max()) \
+            if bool(both.any()) else 0.0
+        check(bad == 0, f"{kind}: {bad} mask pixels differ from the CPU "
+              "away from the validity boundary")
+        check(err <= val_tol, f"{kind}: value error {err} against the "
+              f"CPU, above {val_tol}")
+        outside = rk.image.abs().masked_fill(rk.mask[..., None], 0.0)
+        check(float(outside.max()) == 0.0, f"{kind}: values outside the "
+              "mask")
+        kinds[kind] = {"valid_px": int(vk.sum()),
+                       "mask_mismatch_vs_cpu": int((vk != vc).sum()),
+                       "max_abs_err_vs_cpu": err, "value_tol": val_tol,
+                       "px_above_5e-3": int(((rk.image.cpu() - rc.image)
+                                             .abs().amax(-1) > 5e-3)
+                                            [both].sum()),
+                       "launches": 1}
+
+    mask = torch.ones((H, W), dtype=torch.bool, device="cuda")
+    plain = {"mask": dict(mask=mask), "nearest": dict(interp="nearest"),
+             "mercator": dict(kind="mercator")}
+    for name, kw in plain.items():
+        kw = {"kind": "cylindrical", **kw}
+        r, launches = counted(lambda: warp_image(img, K, R, scale,
+                                                 API_CANVAS, **kw))
+        check(sum(launches.values()) == 0,
+              f"{name}: launches {launches}, want none")
+        check(bool(r.mask.any()), f"{name}: nothing valid")
+    try:
+        warp_image(img.cpu(), K.cpu(), R.cpu(), scale.cpu(), API_CANVAS,
+                   use_kernel=True)
+    except ValueError:
+        pass
+    else:
+        check(False, "use_kernel=True on a CPU tensor did not raise")
+    exports = _subpackage_exports()
+
+    check(total["warp_batched"] == 3 and total["detect_maps"] == 0,
+          f"api_path launches {total}")
+    _record_path(state, "api_path", total)
+    # the cylindrical call's K2 inputs, for its time alone in kernel_times;
+    # the plain version's time here, before any profiler use
+    roi = torch.stack(roi_bounds(K, R, scale, (H, W), "cylindrical"))
+    args = (img.float()[None], k_rinv[None], scale,
+            torch.floor(roi[:2]).to(torch.int32)[None], roi[None],
+            API_CANVAS, "cylindrical")
+    state["k2_api"] = args
+    state.setdefault("k2", {})["api_n1"] = {"plain_ms": cuda_ms(
+        lambda: warp_batched_plain(*args), iters=2, warmup=1)}
+    emit({"phase": "api_path", "kinds": kinds, "launches": total,
+          "plain_cases": sorted(plain), "exports": exports,
+          "card": state["name"], "smi": state["smi"]})
+
+
+def _k2_api_calls(args):
+    """K2 at N=1 as `warp_image` runs it: the one-image wrapper's call
+    (`ops.cuda_warp.warp`), F.grid_sample on the same maps (timed only),
+    and (bound_ms, bound_by): the view read once and the canvas and mask
+    written once over the memory rate, or the operations."""
+    from imagestitch_tpu_torch.ops.cuda_warp import warp
+    imgs, k_rinvs, scale, corners, roi_uvs, canvas, kind = args
+
+    def call():
+        return warp(imgs[0], k_rinvs[0], scale, corners[0], roi_uvs[0],
+                    canvas, kind)
+
+    Hc, Wc = canvas
+    bound = bound_ms(imgs.numel() * 4 + Hc * Wc * (3 * 4 + 1),
+                     WARP_OPS_PER_PX * Hc * Wc
+                     + WARP_OPS_PER_LINE * (Hc + Wc))
+    return call, _grid_sample_call(imgs, k_rinvs, scale, corners, canvas,
+                                   kind), bound
+
+
 STAGES = ("detect", "match", "cameras", "bundle_adjust", "warp", "exposure",
           "seam_blend")
 
@@ -2618,7 +2810,8 @@ def phase_kernel_times(state):
     later launches cost the host more."""
     import torch
     from imagestitch_tpu_torch.utils.timing import (FLUSH_BYTES, kernel_ms,
-                                                    kernel_split_ms)
+                                                    kernel_split_ms,
+                                                    median_ms)
     stitch, one_level = state.pop("k1_calls")
     chain8 = state.pop("k1_chain_call")
     batched = state.pop("k1_batched_calls")
@@ -2645,6 +2838,10 @@ def phase_kernel_times(state):
     k3["cuda_kernels_traced"] = cold["kernels"]
     k3["octave_ms"] = [kernel_ms(fn, N_TIMED, K3_NAMES, flush)
                        for fn in octaves]
+    api_warp, api_lib, api_bound = _k2_api_calls(state.pop("k2_api"))
+    k2n1 = state["k2"]["api_n1"]
+    k2n1["ms"] = kernel_ms(api_warp, N_TIMED, ("warp_kernel",), flush)
+    k2n1["library_ms"] = median_ms(api_lib, N_TIMED, flush.device, flush)
     del flush
     k1["warm_ms"] = kernel_ms(stitch, N_TIMED, ("detect_maps",))
     k1["chain8"]["warm_ms"] = kernel_ms(chain8, N_TIMED, ("detect_maps",))
@@ -2658,6 +2855,8 @@ def phase_kernel_times(state):
     k3["warm_ms_by_name"] = warm["by_name"]
     k3["octave_warm_ms"] = [kernel_ms(fn, N_TIMED, K3_NAMES)
                             for fn in octaves]
+    k2n1["warm_ms"] = kernel_ms(api_warp, N_TIMED, ("warp_kernel",))
+    k2n1["bound_ms"], k2n1["bound_by"] = api_bound
     emit({"phase": "kernel_times",
           "detect_maps": {k: k1[k] for k in ("ms", "warm_ms",
                                               "one_level_ms", "wrapper_ms",
@@ -2667,6 +2866,7 @@ def phase_kernel_times(state):
               "ms", "warm_ms", "ms_by_name", "warm_ms_by_name", "octave_ms",
               "octave_warm_ms", "cuda_kernels_traced", "wrapper_ms",
               "bound_ms")},
+          "warp_api_n1": k2n1,
           "card": state["name"], "smi": state["smi"]})
 
 
@@ -2747,16 +2947,63 @@ def _stage_breakdown(img1, img2, cfg, n_warm: int, trace: bool = True):
     return {"ms": stages, "total_ms": sum(stages.values()), "profile": busy}
 
 
+def _stage_ranges(img1, img2):
+    """stitch() of the 4-view 1080p sequence and stitch_pair of the 1080p
+    rotation pair under torch.profiler: every StageTimer stage entered
+    leaves one `record_function` range of its name on the host's side of
+    the trace. Returns {stage: {"count", "ms", "timer_ms"}}: ms summed
+    over the ranges beside the timer's own ms for the stage."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from imagestitch_tpu_torch import stitch, stitch_pair
+    from imagestitch_tpu_torch.utils import log
+    from imagestitch_tpu_torch.utils.io import synthetic_sequence
+    seq4, _ = synthetic_sequence(4, 1080, 1920, overlap=0.5, seed=7)
+    entered = []
+    stage = log.StageTimer.stage
+
+    def spy(self, name, *tensors):
+        entered.append(name)
+        return stage(self, name, *tensors)
+
+    log.StageTimer.stage = spy
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, m4 = stitch(seq4)
+            _, m2 = stitch_pair(img1, img2)
+            torch.cuda.synchronize()
+    finally:
+        log.StageTimer.stage = stage
+    names = set(entered)
+    timer_ms = {**m4, **m2}
+    ranges = {n: {"count": 0, "ms": 0.0, "timer_ms": timer_ms.get(n)}
+              for n in sorted(names)}
+    for e in prof.events():
+        if e.name in names and e.device_type == DeviceType.CPU:
+            ranges[e.name]["count"] += 1
+            ranges[e.name]["ms"] += e.time_range.elapsed_us() / 1e3
+    want = {n: entered.count(n) for n in names}
+    got = {n: r["count"] for n, r in ranges.items()}
+    check(names and got == want, f"stage ranges {got}, stages entered "
+          f"{want}")
+    return ranges
+
+
 def phase_stages(state):
     """Stage breakdowns of the 1080p ORB rotation stitch (default config)
-    and of the 1080p SIFT plane stitch (bench.py's SIFT configuration)."""
+    and of the 1080p SIFT plane stitch (bench.py's SIFT configuration),
+    then the StageTimer stages' ranges in a torch.profiler trace
+    (`_stage_ranges`)."""
     from imagestitch_tpu_torch.config import PipelineConfig
     img1, img2, _, _ = state["rot"]
     t1, t2 = state["sift_pair"]
-    emit({"phase": "stages", "orb_rotation": _stage_breakdown(
-        img1, img2, PipelineConfig(), 3),
-        "sift_plane": _stage_breakdown(t1, t2, _sift_configs()[1], 3),
-        "card": state["name"], "smi": state["smi"]})
+    orb = _stage_breakdown(img1, img2, PipelineConfig(), 3)
+    sift = _stage_breakdown(t1, t2, _sift_configs()[1], 3)
+    emit({"phase": "stages", "orb_rotation": orb, "sift_plane": sift,
+          "stage_ranges": _stage_ranges(img1, img2),
+          "card": state["name"], "smi": state["smi"]})
 
 
 def main(only=()) -> int:
@@ -2787,7 +3034,7 @@ def main(only=()) -> int:
               ("pano_reference", phase_pano_reference),
               ("pano_path", phase_pano_path),
               ("sharded_path", phase_sharded_path), ("aot", phase_aot),
-              ("cli", phase_cli),
+              ("cli", phase_cli), ("api_path", phase_api_path),
               ("stages", phase_stages), ("kernel_times", phase_kernel_times)]
     unknown = set(only) - {name for name, _ in phases}
     if unknown:

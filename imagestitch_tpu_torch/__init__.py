@@ -20,6 +20,8 @@ Over several devices: `parallel` (a mesh, `stitch_pairs_sharded`,
 stitch|demo`.
 """
 
+__version__ = "0.2.0"
+
 from imagestitch_tpu_torch.config import (
     BlendConfig,
     CameraConfig,
@@ -58,4 +60,5 @@ __all__ = [
     "stitch_chain",
     "stitch_pair",
     "stitch_pairs_batched",
+    "__version__",
 ]

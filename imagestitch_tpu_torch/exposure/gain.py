@@ -82,18 +82,20 @@ def _gain_system(Ibar: torch.Tensor, n_p: torch.Tensor, areas, alpha, beta):
 
 def gain_compensate(images: torch.Tensor, masks: torch.Tensor,
                     corners: torch.Tensor | None = None, alpha: float = 0.01,
-                    beta: float = 100.0):
+                    beta: float = 100.0, shared_frame: bool = False):
     """One gain per canvas. images (N, H, W[, C]) float32, masks (N, H, W)
     bool; corners (N, 2) (x, y) pano origins of the canvases, None when
     every canvas shares one origin (then canvas j is not moved into canvas
-    i's frame for each pair). Returns (gains (N,), images * gains); gains
-    are all 1 when the solve is not finite."""
+    i's frame for each pair); `shared_frame=True` says the same of given
+    corners, which are then not read. Returns (gains (N,), images *
+    gains); gains are all 1 when the solve is not finite."""
     N = images.shape[0]
     dev = images.device
     if N == 1:
         return torch.ones(1, dtype=torch.float32, device=dev), images
     m = masks.to(torch.float32)
-    n_p, s_p = _pair_stats(_intensity(images)[..., None], m, corners)
+    n_p, s_p = _pair_stats(_intensity(images)[..., None], m,
+                           None if shared_frame else corners)
     Ibar = s_p[..., 0] / n_p.clamp(min=1.0)
     A, b = _gain_system(Ibar, n_p, m.sum(dim=(1, 2)), alpha, beta)
     gains = torch.linalg.solve(A, b)
@@ -106,17 +108,18 @@ def gain_compensate(images: torch.Tensor, masks: torch.Tensor,
 
 def channels_compensate(images: torch.Tensor, masks: torch.Tensor,
                         corners: torch.Tensor | None = None,
-                        alpha: float = 0.01, beta: float = 100.0):
+                        alpha: float = 0.01, beta: float = 100.0,
+                        shared_frame: bool = False):
     """Per-channel gains (OpenCV CHANNELS): the gain system solved on each
     colour channel, whose intensity is |channel value|; one mask-stats
-    pass, C batched N x N solves; corners as in `gain_compensate`.
-    Returns (gains (N, C), images * gains)."""
+    pass, C batched N x N solves; corners and `shared_frame` as in
+    `gain_compensate`. Returns (gains (N, C), images * gains)."""
     N, C = images.shape[0], images.shape[-1]
     dev = images.device
     if N == 1:
         return torch.ones((1, C), dtype=torch.float32, device=dev), images
     m = masks.to(torch.float32)
-    n_p, s_p = _pair_stats(images.abs(), m, corners)
+    n_p, s_p = _pair_stats(images.abs(), m, None if shared_frame else corners)
     Ic = (s_p / n_p.clamp(min=1.0)[..., None]).permute(2, 0, 1)  # (C, N, N)
     A, b = _gain_system(Ic, n_p[None], m.sum(dim=(1, 2))[None], alpha, beta)
     gains = torch.linalg.solve(A, b.expand(C, N)).T                # (N, C)

@@ -19,12 +19,13 @@ from imagestitch_tpu_torch.config import RansacConfig
 from imagestitch_tpu_torch.geometry.homography import (
     dlt_homography, lm_refine_homography, reproj_error_sq, solve_h4p)
 from imagestitch_tpu_torch.parallel.mesh import chunk_ranges, model_devices
+from imagestitch_tpu_torch.types import _Replace
 
 _TRIPLES = ((0, 1, 2), (0, 1, 3), (0, 2, 3), (1, 2, 3))
 
 
 @dataclass(frozen=True)
-class RansacResult:
+class RansacResult(_Replace):
     H: torch.Tensor            # (3, 3) float32
     inliers: torch.Tensor      # (N,) bool
     num_inliers: torch.Tensor  # () int32

@@ -5,7 +5,8 @@ with g++ at first use (see `ccl`)."""
 from imagestitch_tpu_torch.native.ccl import (band_dijkstra,
                                               component_stats,
                                               connected_components,
-                                              flood_fill, grid_maxflow)
+                                              flood_fill, grid_maxflow,
+                                              have_native)
 
 __all__ = ["band_dijkstra", "component_stats", "connected_components",
-           "flood_fill", "grid_maxflow"]
+           "flood_fill", "grid_maxflow", "have_native"]

@@ -9,7 +9,8 @@ first use, in `build/native-<hash>/` beside the package (the directory
 `.gitignore` lists); the hash covers the sources and the flags, so an
 edited source builds a new library and an unchanged one is loaded again.
 Nothing builds when the module is imported. Without g++ the functions
-raise: the JAX package falls back to NumPy there, the port does not.
+raise: the JAX package falls back to NumPy there, the port does not
+(`have_native` asks whether the library builds and loads).
 `_ccl_numpy` and `_flood_numpy` are the plain twins the tests hold the
 native code against.
 """
@@ -110,6 +111,16 @@ def load_library(build_root: Path | None = None) -> ctypes.CDLL:
         lib.band_dijkstra.argtypes = [f32p, f32p, i64, i64, u8p]
         _lib = lib
         return _lib
+
+
+def have_native() -> bool:
+    """Whether the native library builds (or is built) and loads here. A
+    query only: without it the native functions still raise."""
+    try:
+        load_library()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def _ptr(a: np.ndarray, ctype):

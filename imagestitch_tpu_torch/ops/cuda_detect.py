@@ -1,5 +1,6 @@
 """Detector maps of pyramid levels: FAST-9 score with 3x3 NMS, Harris
-response and the 7x7 σ=2 blur, for batches of (B, H, W) float32 images.
+response and the Gaussian blur (7x7 σ=2 by default; the kernel takes an
+odd size up to 7), for batches of (B, H, W) float32 images.
 
 On CUDA tensors `detect_maps_levels` launches the hand-written kernel of
 `csrc/detect_maps.cu` once for up to 8 levels (it replaces the TPU kernel
@@ -30,10 +31,12 @@ launch_count = 0
 
 
 def detect_maps_plain(img: torch.Tensor, threshold: float,
-                      block_size: int = 7, k_harris: float = 0.04):
-    """(B, H, W) -> (nms_score, harris, blurred), each (B, H, W) float32."""
+                      block_size: int = 7, k_harris: float = 0.04,
+                      ksize: int = BLUR_KSIZE, sigma: float = BLUR_SIGMA):
+    """(B, H, W) -> (nms_score, harris, blurred), each (B, H, W) float32;
+    the blur is ksize x ksize with σ = sigma."""
     img = img.to(torch.float32)
-    k = gaussian_kernel1d(BLUR_KSIZE, BLUR_SIGMA, device=img.device)
+    k = gaussian_kernel1d(ksize, sigma, device=img.device)
     return (nms3x3(fast_score_map(img, threshold)),
             harris_map(img, block_size, k_harris),
             sep_filter_planes(img, k, k))
@@ -54,10 +57,15 @@ def _fn():
 
 
 @functools.lru_cache(maxsize=None)
-def _taps() -> "ctypes.Array":
-    """The plain version's float32 blur taps."""
-    t = gaussian_kernel1d(BLUR_KSIZE, BLUR_SIGMA)
-    return (ctypes.c_float * BLUR_KSIZE)(*t.numpy().tolist())
+def _taps(ksize: int, sigma: float) -> "ctypes.Array":
+    """The plain version's float32 blur taps, centred in the kernel's
+    BLUR_KSIZE with zeros around them (a zero tap times a finite pixel
+    adds exactly nothing, so the sums stay the plain version's)."""
+    if ksize % 2 == 0 or not 1 <= ksize <= BLUR_KSIZE:
+        raise ValueError(f"blur ksize {ksize} is not odd <= {BLUR_KSIZE}")
+    pad = [0.0] * ((BLUR_KSIZE - ksize) // 2)
+    t = gaussian_kernel1d(ksize, sigma).numpy().tolist()
+    return (ctypes.c_float * BLUR_KSIZE)(*(pad + t + pad))
 
 
 def _check_levels(levels) -> int:
@@ -88,7 +96,8 @@ def _check_levels(levels) -> int:
 
 
 def detect_maps_levels_cuda(levels, threshold: float, block_size: int = 7,
-                            k_harris: float = 0.04):
+                            k_harris: float = 0.04, ksize: int = BLUR_KSIZE,
+                            sigma: float = BLUR_SIGMA):
     """One kernel launch over a list of (B, H_l, W_l) float32 contiguous
     CUDA tensors; returns [(nms_score, harris, blurred)] per level, views
     into one allocation that holds each level's three maps as a block."""
@@ -96,6 +105,7 @@ def detect_maps_levels_cuda(levels, threshold: float, block_size: int = 7,
     B = _check_levels(levels)
     if block_size % 2 == 0 or not 1 <= block_size <= 7:
         raise ValueError(f"harris block_size {block_size} is not odd <= 7")
+    taps = _taps(ksize, float(sigma))
     sizes = [3 * img.numel() for img in levels]
     flat = torch.empty(sum(sizes), dtype=torch.float32,
                        device=levels[0].device)
@@ -108,7 +118,7 @@ def detect_maps_levels_cuda(levels, threshold: float, block_size: int = 7,
         stream = torch.cuda.current_stream().cuda_stream
         status = _fn()(ptrs, hs, ws, n, B, flat.data_ptr(),
                        float(threshold), block_size, float(k_harris), s4,
-                       _taps(), stream)
+                       taps, stream)
     from imagestitch_tpu_torch.ops.cuda_build import (check,
                                                        count_launch)
     check(status, "detect_maps kernel launch")
@@ -121,31 +131,36 @@ def detect_maps_levels_cuda(levels, threshold: float, block_size: int = 7,
 
 
 def detect_maps_cuda(img: torch.Tensor, threshold: float,
-                     block_size: int = 7, k_harris: float = 0.04):
+                     block_size: int = 7, k_harris: float = 0.04,
+                     ksize: int = BLUR_KSIZE, sigma: float = BLUR_SIGMA):
     """Launch the CUDA kernel on one (B, H, W) float32 contiguous CUDA
     tensor; returns (nms_score, harris, blurred)."""
-    return detect_maps_levels_cuda([img], threshold, block_size,
-                                   k_harris)[0]
+    return detect_maps_levels_cuda([img], threshold, block_size, k_harris,
+                                   ksize, sigma)[0]
 
 
 def detect_maps_levels(levels, threshold: float, block_size: int = 7,
-                       k_harris: float = 0.04):
+                       k_harris: float = 0.04, ksize: int = BLUR_KSIZE,
+                       sigma: float = BLUR_SIGMA):
     """[(B, H_l, W_l) float32] -> [(nms_score, harris, blurred)] per level:
     one launch of the CUDA kernel for CUDA tensors, the plain version level
     by level for CPU tensors."""
     levels = list(levels)
     if levels and all(img.device.type == "cpu" for img in levels):
-        return [detect_maps_plain(img, threshold, block_size, k_harris)
-                for img in levels]
+        return [detect_maps_plain(img, threshold, block_size, k_harris,
+                                  ksize, sigma) for img in levels]
     if levels and all(img.is_cuda for img in levels):
         return detect_maps_levels_cuda(levels, threshold, block_size,
-                                       k_harris)
+                                       k_harris, ksize, sigma)
     raise ValueError("detect_maps_levels: unsupported devices "
                      f"{sorted({str(img.device) for img in levels})}")
 
 
 def detect_maps(img: torch.Tensor, threshold: float, block_size: int = 7,
-                k_harris: float = 0.04):
+                k_harris: float = 0.04, ksize: int = BLUR_KSIZE,
+                sigma: float = BLUR_SIGMA):
     """(B, H, W) float32 -> (nms_score, harris, blurred): the CUDA kernel
-    for a CUDA tensor, the plain version for a CPU tensor."""
-    return detect_maps_levels([img], threshold, block_size, k_harris)[0]
+    for a CUDA tensor, the plain version for a CPU tensor. The blur is
+    ksize x ksize with σ = sigma (the kernel's ksize: odd, at most 7)."""
+    return detect_maps_levels([img], threshold, block_size, k_harris, ksize,
+                              sigma)[0]

@@ -5,7 +5,8 @@ one shared pano frame, with the signature and layouts of
 On CUDA tensors `warp_batched` launches the hand-written kernel of
 `csrc/warp.cu` or raises; on CPU tensors it runs
 `warp.warper.warp_batched_plain`, the JAX package's XLA warp path in plain
-tensor code. `launch_count` counts the kernel launches of
+tensor code. `warp` is its one-image form (`pallas_warp`), the kernel route
+of `warp.warper.warp_image`. `launch_count` counts the kernel launches of
 `warp_batched_cuda`; `warp_launcher`, which exists only to time the kernel
 apart from the wrapper, launches uncounted.
 
@@ -178,3 +179,16 @@ def warp_batched(imgs: torch.Tensor, k_rinvs: torch.Tensor, scale,
     out, valid = warp_batched_plain(x, k_rinvs, scale, corners, roi_uvs,
                                     canvas_hw, kind, src_sizes)
     return (out[..., 0] if squeeze else out), valid
+
+
+def warp(img: torch.Tensor, k_rinv: torch.Tensor, scale, corner: torch.Tensor,
+         roi_uv: torch.Tensor, canvas_hw: tuple[int, int],
+         kind: str = "cylindrical"):
+    """Warp one (H, W[, C]) image into one (Hc, Wc) canvas: `warp_batched`
+    on a batch of one, so one kernel launch on a CUDA tensor and the plain
+    version on a CPU tensor. k_rinv: (3, 3) K·R⁻¹; scale: a number or a
+    one-element tensor; corner: (2,) (x, y) canvas origin; roi_uv: (4,)
+    [u0, v0, u1, v1]. Returns (out (Hc, Wc[, C]), valid (Hc, Wc))."""
+    out, valid = warp_batched(img[None], k_rinv[None], scale, corner[None],
+                              roi_uv[None], canvas_hw, kind)
+    return out[0], valid[0]

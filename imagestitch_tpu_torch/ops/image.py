@@ -45,15 +45,45 @@ def gaussian_kernel1d(ksize: int, sigma: float,
     return (k / tot).to(device)
 
 
-def sep_filter_planes(x: torch.Tensor, kx: torch.Tensor, ky: torch.Tensor
-                      ) -> torch.Tensor:
-    """Separable filter of (P, H, W) float32 planes with BORDER_REFLECT_101
-    padding: a vertical pass of shifted multiply-adds, then a horizontal
-    one."""
+def _border_index(n: int, r: int, border: str, device) -> torch.Tensor:
+    """The source index of each of the n + 2r positions of a line padded
+    by r on both sides: reflect-101, reflected again past the far edge as
+    `jnp.pad`'s "reflect" does ("reflect"), or the nearest edge
+    ("edge")."""
+    i = torch.arange(-r, n + r, device=device)
+    if border == "edge" or n == 1:
+        return i.clamp(0, n - 1)
+    period = 2 * (n - 1)
+    i = i.remainder(period)
+    return torch.where(i >= n, period - i, i)
+
+
+def _pad_planes(x: torch.Tensor, ry: int, rx: int, border: str
+                ) -> torch.Tensor:
+    """(P, H, W) padded by ry rows and rx columns on both sides with the
+    border of `jnp.pad`'s mode of the same name: "reflect" (reflect-101),
+    "edge" (replicate) or "constant" (zeros)."""
+    H, W = x.shape[-2:]
+    if border == "constant":
+        return F.pad(x, (rx, rx, ry, ry))
+    if border == "reflect" and ry < H and rx < W:
+        return F.pad(x[None], (rx, rx, ry, ry), mode="reflect")[0]
+    if border not in ("reflect", "edge"):
+        raise ValueError(f"border {border!r}: 'reflect', 'edge' or "
+                         "'constant'")
+    return (x.index_select(-2, _border_index(H, ry, border, x.device))
+            .index_select(-1, _border_index(W, rx, border, x.device)))
+
+
+def sep_filter_planes(x: torch.Tensor, kx: torch.Tensor, ky: torch.Tensor,
+                      border: str = "reflect") -> torch.Tensor:
+    """Separable filter of (P, H, W) float32 planes, the border as
+    `_pad_planes` pads it (default reflect-101): a vertical pass of shifted
+    multiply-adds, then a horizontal one."""
     H, W = x.shape[-2:]
     rx = (kx.shape[0] - 1) // 2
     ry = (ky.shape[0] - 1) // 2
-    p = F.pad(x[None], (rx, rx, ry, ry), mode="reflect")[0]
+    p = _pad_planes(x, ry, rx, border)
     acc = ky[0] * p[:, 0:H]
     for t in range(1, ky.shape[0]):
         acc = acc + ky[t] * p[:, t:t + H]
@@ -63,20 +93,22 @@ def sep_filter_planes(x: torch.Tensor, kx: torch.Tensor, ky: torch.Tensor
     return out
 
 
-def _sep_filter2d(img: torch.Tensor, kx: torch.Tensor, ky: torch.Tensor
-                  ) -> torch.Tensor:
-    """Separable 2-D filter over (H, W) or (H, W, C) float32, reflect-101."""
+def _sep_filter2d(img: torch.Tensor, kx: torch.Tensor, ky: torch.Tensor,
+                  border: str = "reflect") -> torch.Tensor:
+    """Separable 2-D filter over (H, W) or (H, W, C) float32."""
     if img.ndim == 2:
-        return sep_filter_planes(img[None], kx, ky)[0]
-    return sep_filter_planes(img.permute(2, 0, 1), kx, ky).permute(1, 2, 0)
+        return sep_filter_planes(img[None], kx, ky, border)[0]
+    return sep_filter_planes(img.permute(2, 0, 1), kx, ky,
+                             border).permute(1, 2, 0)
 
 
-def gaussian_blur(img: torch.Tensor, ksize: int = 7,
-                  sigma: float = 2.0) -> torch.Tensor:
-    """GaussianBlur of (H, W) or (H, W, C), reflect-101 border (7x7 sigma=2
-    before descriptor sampling in the reference)."""
+def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0,
+                  border: str = "reflect") -> torch.Tensor:
+    """GaussianBlur of (H, W) or (H, W, C) (7x7 sigma=2 before descriptor
+    sampling in the reference). `border`: "reflect" (reflect-101, OpenCV's
+    default), "edge" (replicate) or "constant" (zeros)."""
     k = gaussian_kernel1d(ksize, sigma, device=img.device)
-    return _sep_filter2d(img.to(torch.float32), k, k)
+    return _sep_filter2d(img.to(torch.float32), k, k, border)
 
 
 def sobel(img: torch.Tensor, dx: int, dy: int, ksize: int = 3

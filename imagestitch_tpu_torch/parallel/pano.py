@@ -226,7 +226,7 @@ def _views(images, dev: torch.device) -> torch.Tensor:
     return images.to(device=dev, dtype=torch.float32)
 
 
-def stitch_chain_pano(images, config: PipelineConfig | None = None,
+def stitch_chain_pano(imgs, config: PipelineConfig | None = None,
                       seed: int = 0, device=None, draws=None):
     """N same-size (H, W, 3) views with consecutive overlap -> uncropped
     (pano (Hc, Wc, 3), valid, corner, metrics) tensors on the device.
@@ -236,11 +236,11 @@ def stitch_chain_pano(images, config: PipelineConfig | None = None,
     cfg = config or PipelineConfig()
     _refuse(cfg)
     dev = resolve_device(device)
-    return stitch_chain_pano_impl(_views(images, dev), cfg, draws,
+    return stitch_chain_pano_impl(_views(imgs, dev), cfg, draws,
                                   _generator(dev, seed))
 
 
-def stitch_chain_pano_sharded(images, mesh: Mesh,
+def stitch_chain_pano_sharded(imgs, mesh: Mesh,
                               config: PipelineConfig | None = None,
                               seed: int = 0, draws=None):
     """`stitch_chain_pano` split over `mesh` (module docstring); the same
@@ -249,7 +249,7 @@ def stitch_chain_pano_sharded(images, mesh: Mesh,
     cfg = config or PipelineConfig()
     _refuse(cfg)
     home = mesh.first()
-    return _chain_pano(_views(images, home), cfg, draws,
+    return _chain_pano(_views(imgs, home), cfg, draws,
                        _generator(home, seed), mesh)
 
 

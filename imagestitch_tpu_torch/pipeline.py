@@ -940,6 +940,15 @@ def stitch_chain_impl(imgs: torch.Tensor,
     return pano, valid, corner, metrics
 
 
+# the JAX package's jitted programs by their names: the port runs eagerly,
+# so each is the function itself
+stitch_pair_core = stitch_pair_impl
+stitch_chain_core = stitch_chain_impl
+stitch_chain_front = stitch_chain_front_impl
+stitch_pair_front = stitch_pair_front_impl
+blend_resolved = _blend_resolved
+
+
 def stitch_chain(images, config: PipelineConfig | None = None,
                  seed: int = 0, device=None, draws=None):
     """N same-size (H, W, 3) uint8 RGB views with consecutive overlap ->

@@ -3,9 +3,10 @@ gather into a static canvas (`imagestitch_tpu.warp.warper`).
 
 `warp_batched_plain` is the plain version of the warp kernel
 (`ops.cuda_warp.warp_batched`): the JAX package's XLA path, image by image,
-with the kernel's signature. `warp_image` warps one image on any device
-with any projector, bilinearly or by nearest neighbour, optionally through
-a source mask; `warp_point` forward-maps points.
+with the kernel's signature. `warp_image` warps one image with any
+projector, bilinearly or by nearest neighbour, optionally through a source
+mask: through the kernel (`ops.cuda_warp.warp`) for a CUDA image in the
+cases it carries, else the plain path. `warp_point` forward-maps points.
 """
 
 from __future__ import annotations
@@ -15,12 +16,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from imagestitch_tpu_torch.ops.cuda_warp import KIND_IDS, warp
 from imagestitch_tpu_torch.ops.image import remap_bilinear, remap_nearest
+from imagestitch_tpu_torch.types import _Replace
 from imagestitch_tpu_torch.warp.projectors import PROJECTORS
 
 
 @dataclass(frozen=True)
-class WarpResult:
+class WarpResult(_Replace):
     image: torch.Tensor   # (Hc, Wc, C) float32
     mask: torch.Tensor    # (Hc, Wc) bool
     corner: torch.Tensor  # (2,) int32 — (x, y) of the canvas origin
@@ -111,12 +114,22 @@ def warp_batched_plain(imgs: torch.Tensor, k_rinvs: torch.Tensor, scale,
 def warp_image(img: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
                scale, canvas_hw: tuple[int, int], kind: str = "cylindrical",
                mask: torch.Tensor | None = None, interp: str = "linear",
-               corner: torch.Tensor | None = None) -> WarpResult:
-    """Warp one source image (H, W[, C]) onto the projection surface, the
-    plain path on any device: bilinear (`interp="linear"`) or nearest
-    sampling, and with `mask` (H, W) only where the nearest source mask
-    pixel is set. `corner` (x, y) places the canvas origin (default: the
-    floor of the image's own ROI corner)."""
+               corner: torch.Tensor | None = None,
+               use_kernel: bool | None = None) -> WarpResult:
+    """Warp one source image (H, W[, C]) onto the projection surface:
+    bilinear (`interp="linear"`) or nearest sampling, and with `mask`
+    (H, W) only where the nearest source mask pixel is set. `corner`
+    (x, y) places the canvas origin (default: the floor of the image's own
+    ROI corner).
+
+    `use_kernel` (the JAX package's `use_pallas`): None takes the warp
+    kernel (one launch of `ops.cuda_warp.warp`) for a CUDA image in the
+    cases it carries (a cylindrical, spherical or plane surface, linear
+    sampling, no mask), else the plain path; False the plain path on any
+    device; True the kernel in those cases (the plain path in the others,
+    as `use_pallas=True` does), and raises for an image that is not on a
+    CUDA device (the kernel has no CPU mode). Both routes give the same
+    bits."""
     Hc, Wc = canvas_hw
     H, W = img.shape[:2]
     proj = PROJECTORS[kind](K, R, scale)
@@ -127,14 +140,26 @@ def warp_image(img: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
     size_w = (torch.ceil(u1) - torch.floor(u0) + 1).to(torch.int32)
     size_h = (torch.ceil(v1) - torch.floor(v0) + 1).to(torch.int32)
     size = torch.stack([size_w.clamp(max=Wc), size_h.clamp(max=Hc)])
+    roi_uv = torch.stack([u0, v0, u1, v1])
+    if use_kernel and not img.is_cuda:
+        raise ValueError(f"warp_image(use_kernel=True) needs a CUDA tensor, "
+                         f"got one on {img.device}: the warp kernel has no "
+                         "CPU mode")
+    if use_kernel is None:
+        use_kernel = img.is_cuda
+    kernel_case = kind in KIND_IDS and interp == "linear" and mask is None
     x = img.to(torch.float32)
+    if use_kernel and kernel_case:
+        out, valid = warp(x.contiguous(), proj.k_rinv, scale, corner,
+                          roi_uv, canvas_hw, kind)
+        return WarpResult(image=out, mask=valid, corner=corner, size=size)
     squeeze = x.ndim == 2
     if squeeze:
         x = x[..., None]
     out, valid = warp_batched_plain(
-        x[None], proj.k_rinv[None], scale, corner[None],
-        torch.stack([u0, v0, u1, v1])[None], canvas_hw, kind,
-        masks=None if mask is None else mask[None], interp=interp)
+        x[None], proj.k_rinv[None], scale, corner[None], roi_uv[None],
+        canvas_hw, kind, masks=None if mask is None else mask[None],
+        interp=interp)
     out = out[0, ..., 0] if squeeze else out[0]
     return WarpResult(image=out, mask=valid[0], corner=corner, size=size)
 

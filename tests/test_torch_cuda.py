@@ -52,6 +52,23 @@ def test_detect_kernel_matches_plain(cuda, shape):
     assert float((k[2] - p[2]).abs().max()) <= 1e-3
 
 
+@pytest.mark.parametrize("ksize,sigma", [(1, 1.0), (3, 0.8), (5, 1.5),
+                                         (7, 1.2)])
+def test_detect_kernel_blur_sizes_match_plain(cuda, ksize, sigma):
+    """The blur at other odd sizes up to the kernel's 7 and other sigmas
+    (the taps centred, zeros around them): within 1e-3 intensity of the
+    plain version; FAST/NMS and Harris do not depend on it."""
+    rng = np.random.default_rng(ksize)
+    img = torch.as_tensor(rng.uniform(0, 255, (2, 97, 131)).astype(
+        np.float32), device=cuda)
+    k = cuda_detect.detect_maps(img, 20.0, ksize=ksize, sigma=sigma)
+    p = cuda_detect.detect_maps_plain(img, 20.0, ksize=ksize, sigma=sigma)
+    assert torch.equal(k[0], p[0])
+    assert float((k[2] - p[2]).abs().max()) <= 1e-3
+    with pytest.raises(ValueError, match="ksize"):
+        cuda_detect.detect_maps(img, 20.0, ksize=9)
+
+
 def _detect_images(image, batch):
     """(batch, 97, 131) float32: seeded noise, a constant, or a
     checkerboard of 4-pixel cells (FAST's arcs tie)."""
@@ -379,6 +396,95 @@ def test_warp_kernel_cases_match_plain(cuda, case):
     assert float(ok.abs().masked_select(dead).max()) == 0.0
     if "shift" in case:       # whole tiles outside the ROI: all zero
         assert not bool(vk[:, :, :128].any())
+
+
+def _warp_image_args(dev, case="rgb"):
+    """One seeded 120x160 view under a camera yawed 0.12 rad, as
+    `warp_image` takes it, with the variant of `case`."""
+    rng = np.random.default_rng(11)
+    img = rng.uniform(0, 255, (120, 160, 3)).astype(np.float32)
+    if case == "gray":
+        img = img[..., 0]
+    elif case == "uint8":
+        img = np.round(img).astype(np.uint8)
+    img = torch.as_tensor(img, device=dev)
+    if case == "strided":
+        img = img.transpose(0, 1).contiguous().transpose(0, 1)
+    a = 0.12
+    K = torch.tensor([[200.0, 0, 80], [0, 200.0, 60], [0, 0, 1]],
+                     device=dev)
+    R = torch.tensor([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]], dtype=torch.float32,
+                     device=dev)
+    scale = {"scale_float": 200.0,
+             "scale_1": torch.tensor([200.0], device=dev)}.get(
+        case, torch.tensor(200.0, device=dev))
+    canvas = (40, 60) if case == "small_canvas" else (150, 220)
+    return img, K, R, scale, canvas
+
+
+def _same_result(a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("image", "mask", "corner", "size"))
+
+
+@pytest.mark.parametrize("case", ["rgb", "gray", "uint8", "strided",
+                                  "scale_float", "scale_1", "small_canvas"])
+@pytest.mark.parametrize("kind", ["cylindrical", "spherical", "plane"])
+def test_warp_image_launches_the_kernel_once(cuda, kind, case):
+    """`warp_image` of a CUDA image takes the warp kernel (one launch) for
+    the three kinds it carries and equals `use_kernel=False` on the card
+    bit for bit, whatever the image's type, layout and scale."""
+    from imagestitch_tpu_torch.warp.warper import warp_image
+    img, K, R, scale, canvas = _warp_image_args(cuda, case)
+    n0 = cuda_warp.launch_count
+    rk = warp_image(img, K, R, scale, canvas, kind)
+    assert cuda_warp.launch_count == n0 + 1
+    rt = warp_image(img, K, R, scale, canvas, kind, use_kernel=True)
+    assert cuda_warp.launch_count == n0 + 2
+    rp = warp_image(img, K, R, scale, canvas, kind, use_kernel=False)
+    assert cuda_warp.launch_count == n0 + 2
+    assert _same_result(rk, rp) and _same_result(rt, rp)
+    assert rk.image.shape == canvas + tuple(img.shape[2:])
+    assert bool(rk.mask.any())
+
+
+@pytest.mark.parametrize("extra", [{"interp": "nearest"}, {"mask": True},
+                                   {"kind": "mercator"}],
+                         ids=["nearest", "mask", "mercator"])
+def test_warp_image_plain_where_the_kernel_does_not_carry(cuda, extra):
+    """Nearest sampling, a source mask or a projector the kernel does not
+    carry: the plain path on the card, no launch, with or without
+    use_kernel=True."""
+    from imagestitch_tpu_torch.warp.warper import warp_image
+    img, K, R, scale, canvas = _warp_image_args(cuda)
+    kw = dict(extra)
+    if kw.pop("mask", False):
+        kw["mask"] = torch.ones(img.shape[:2], dtype=torch.bool,
+                                device=cuda)
+    kw.setdefault("kind", "cylindrical")
+    n0 = cuda_warp.launch_count
+    rd = warp_image(img, K, R, scale, canvas, **kw)
+    rt = warp_image(img, K, R, scale, canvas, use_kernel=True, **kw)
+    rp = warp_image(img, K, R, scale, canvas, use_kernel=False, **kw)
+    assert cuda_warp.launch_count == n0
+    assert _same_result(rd, rp) and _same_result(rt, rp)
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("kind", ["cylindrical", "spherical", "plane"])
+def test_one_image_warp_equals_a_batch_of_one(cuda, kind, channels):
+    """`cuda_warp.warp` is one launch and equals `warp_batched` on a batch
+    of one bit for bit."""
+    imgs, kr, scale, corners, roi, canvas, _ = _yaw_warp_args(
+        cuda, 1, 60, 80, channels, kind=kind)
+    n0 = cuda_warp.launch_count
+    out, valid = cuda_warp.warp(imgs[0], kr[0], scale, corners[0], roi[0],
+                                canvas, kind)
+    assert cuda_warp.launch_count == n0 + 1
+    ob, vb = cuda_warp.warp_batched(imgs, kr, scale, corners, roi, canvas,
+                                    kind)
+    assert torch.equal(out, ob[0]) and torch.equal(valid, vb[0])
 
 
 def test_warp_wrapper_launches_only_the_kernel(cuda):

@@ -81,6 +81,27 @@ def test_gain_per_frame_with_corners(n):
                                atol=1e-3)
 
 
+@pytest.mark.parametrize("kind", ["gain", "channels"])
+def test_shared_frame_skips_given_corners(kind):
+    """`shared_frame=True` with nonzero corners given: the JAX package's
+    gains (it skips the frame shifts too), and exactly the port's
+    `corners=None`."""
+    n = 3
+    imgs, masks = _canvases(n, 30)
+    corners = np.asarray([[-30 * i, 5 * i] for i in range(n)], np.int32)
+    name = f"{kind}_compensate"
+    gj, oj = getattr(jgain, name)(jnp.asarray(imgs), jnp.asarray(masks),
+                                  jnp.asarray(corners), shared_frame=True)
+    ti, tm = torch.as_tensor(imgs), torch.as_tensor(masks)
+    gt, ot = getattr(tgain, name)(ti, tm, torch.as_tensor(corners),
+                                  shared_frame=True)
+    g0, o0 = getattr(tgain, name)(ti, tm)
+    assert torch.equal(gt, g0) and torch.equal(ot, o0)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-5)
+    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=1e-5,
+                               atol=1e-3)
+
+
 @pytest.mark.parametrize("n", [3, 4])
 def test_channels(n):
     imgs, masks = _canvases(n, 20 + n)

@@ -6,10 +6,11 @@ frame alignment against `imagestitch_tpu` on the CPU.
   every product and partial sum of the two passes is exact in float32 on
   integer images, and the reflect-101 padding is the same; the others
   only select values.
-- `box_filter`: bit for bit at XLA optimization level 0
-  (`tests/conftest.py`): the port rounds each tap's product and each
-  partial sum in the JAX package's order (vertical pass, then
-  horizontal).
+- `box_filter` and `gaussian_blur` (each border: reflect-101, edge,
+  zeros, on images smaller than the blur's radius too): bit for bit at
+  XLA optimization level 0 (`tests/conftest.py`): the port rounds each
+  tap's product and each partial sum in the JAX package's order
+  (vertical pass, then horizontal), and pads as `jnp.pad` does.
 """
 
 import numpy as np
@@ -24,7 +25,8 @@ from imagestitch_tpu.ops import image as jimg  # noqa: E402
 from imagestitch_tpu_torch.blend.frame import (  # noqa: E402
     shift_to_frame, union_corner_size)
 from imagestitch_tpu_torch.ops.image import (box_filter, erode,  # noqa
-                                             remap_nearest, sobel)
+                                             gaussian_blur, remap_nearest,
+                                             sobel)
 
 torch.set_num_threads(2)
 
@@ -50,6 +52,18 @@ def test_box_filter_bit_for_bit(ksize, shape):
     x = _img(2, shape, integer=False)
     want = np.asarray(jimg.box_filter(jnp.asarray(x), ksize))
     got = box_filter(torch.as_tensor(x), ksize).numpy()
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("border", ["reflect", "edge", "constant"])
+@pytest.mark.parametrize("shape", [(40, 52), (33, 29, 3), (2, 3), (1, 5, 3)])
+def test_gaussian_blur_borders_bit_for_bit(border, shape):
+    """The 7x7 σ=2 blur (radius 3) with each `jnp.pad` border; on the 2x3
+    and 1x5 images the pad is wider than the image, where "reflect"
+    reflects again past the far edge."""
+    x = _img(5, shape, integer=False)
+    want = np.asarray(jimg.gaussian_blur(jnp.asarray(x), 7, 2.0, border))
+    got = gaussian_blur(torch.as_tensor(x), 7, 2.0, border).numpy()
     assert np.array_equal(got, want)
 
 

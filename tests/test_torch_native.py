@@ -10,10 +10,13 @@ three C++ sources) against `imagestitch_tpu.native` on the CPU.
 - The plain twins `_ccl_numpy` and `_flood_numpy` equal the native code
   exactly (both number components in raster order of their first pixel).
 - A corridor whose cost arrays do not fit raises ValueError.
+- `have_native()` says what the JAX package's says where g++ builds the
+  library, and False when the library cannot be built.
 """
 
 import filecmp
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -32,6 +35,19 @@ def test_sources_are_copies(name):
     assert filecmp.cmp(os.path.join(here, "imagestitch_tpu", "native", name),
                        os.path.join(here, "imagestitch_tpu_torch", "native",
                                     name), shallow=False)
+
+
+def test_have_native_where_gxx_is_present():
+    assert shutil.which("g++") is not None
+    assert tccl.have_native() is True
+    assert tccl.have_native() == jccl.have_native()
+
+
+def test_have_native_false_when_the_build_fails(monkeypatch):
+    def fail(build_root=None):
+        raise RuntimeError("g++ not found")
+    monkeypatch.setattr(tccl, "load_library", fail)
+    assert tccl.have_native() is False
 
 
 def test_library_builds_under_build_dir():

@@ -1,7 +1,12 @@
 """imagestitch_tpu_torch warp: the plain version of the warp kernel
 against the JAX package's XLA warp path (`warp_image(use_pallas=False)`)
 for the three ported projectors, the shared-canvas `_warp_all_shared`
-(mixed sizes included), and the warp's image ops.
+(mixed sizes included), and the warp's image ops. On the CPU,
+`warp_image`'s default route is its plain path (the inputs the kernel
+route converts: a gray image, uint8, a strided view, a scale as a number
+or a tensor, a canvas smaller than the ROI), `use_kernel=True` raises,
+and `ops.cuda_warp.warp` is `warp_batched` on a batch of one; none of
+them builds the kernel library.
 
 Tolerances: masks may differ only on pixels whose source coordinate sits
 within 1e-3 px of the image border (float32 rounding of sin/cos/divide
@@ -30,6 +35,7 @@ from imagestitch_tpu.warp.warper import warp_image as j_warp  # noqa: E402
 from imagestitch_tpu_torch import pipeline as tpipe  # noqa: E402
 from imagestitch_tpu_torch.convert import (cameras_from_numpy,  # noqa: E402
                                            config_from_dict)
+from imagestitch_tpu_torch.ops import cuda_build, cuda_warp  # noqa: E402
 from imagestitch_tpu_torch.ops.image import dilate, remap_bilinear  # noqa
 from imagestitch_tpu_torch.warp.warper import roi_bounds, warp_image  # noqa
 
@@ -114,6 +120,110 @@ def test_warp_image_matches_jax_xla_path(kind):
     _assert_warp_close(rt.image.numpy(), rt.mask.numpy(),
                        np.asarray(rj.image), np.asarray(rj.mask), xs, ys,
                        H, W)
+
+
+def _no_library(monkeypatch):
+    def boom():
+        raise AssertionError("kernel library requested for a CPU tensor")
+    monkeypatch.setattr(cuda_build, "load_library", boom)
+
+
+def _yaw_case(case):
+    """(numpy image as the JAX package gets it, the port's tensor, scale
+    as the port gets it, canvas) for one input variant."""
+    img = _images(7, 1)[0]
+    scale, canvas = 90.0, (90, 140)
+    if case == "gray":
+        img = img[..., 0]
+    elif case == "uint8":
+        img = np.round(img).astype(np.uint8)
+    elif case == "scale_0d":
+        scale = torch.tensor(90.0)
+    elif case == "scale_1":
+        scale = torch.tensor([90.0])
+    elif case == "small_canvas":
+        canvas = (24, 30)
+    t = torch.as_tensor(img)
+    if case == "strided":
+        t = torch.as_tensor(np.ascontiguousarray(
+            img.transpose(1, 0, 2))).permute(1, 0, 2)
+        assert not t.is_contiguous()
+    return img, t, scale, canvas
+
+
+@pytest.mark.parametrize("case", ["rgb", "gray", "uint8", "strided",
+                                  "scale_0d", "scale_1", "small_canvas"])
+@pytest.mark.parametrize("kind", KINDS + ["mercator"])
+def test_warp_image_default_route_on_cpu(monkeypatch, kind, case):
+    """use_kernel=None on a CPU tensor is the plain path (use_kernel=False)
+    bit for bit, and agrees with the JAX package's XLA path."""
+    _no_library(monkeypatch)
+    img, t, scale, canvas = _yaw_case(case)
+    c = _cams([(H, W)] * 2)
+    K = np.array([[90.0, 0, W / 2], [0, 90.0, H / 2], [0, 0, 1]], np.float32)
+    R = c["R"][1]
+    Kt, Rt = torch.as_tensor(K), torch.as_tensor(R)
+    n0 = cuda_warp.launch_count
+    rd = warp_image(t, Kt, Rt, scale, canvas, kind)
+    rp = warp_image(t, Kt, Rt, scale, canvas, kind, use_kernel=False)
+    assert cuda_warp.launch_count == n0
+    for f in ("image", "mask", "corner", "size"):
+        assert torch.equal(getattr(rd, f), getattr(rp, f)), f
+    rj = j_warp(jnp.asarray(img), jnp.asarray(K), jnp.asarray(R), 90.0,
+                canvas, kind, use_pallas=False)
+    assert np.array_equal(rd.corner.numpy(), np.asarray(rj.corner))
+    assert np.array_equal(rd.size.numpy(), np.asarray(rj.size))
+    assert rd.image.shape == rj.image.shape
+    if kind in KINDS:
+        xs, ys = _source_coords(K, R, 90.0, np.asarray(rj.corner), canvas,
+                                kind)
+        _assert_warp_close(rd.image.numpy(), rd.mask.numpy(),
+                           np.asarray(rj.image), np.asarray(rj.mask), xs,
+                           ys, H, W)
+
+
+@pytest.mark.parametrize("extra", [{}, {"interp": "nearest"},
+                                   {"mask": True}, {"kind": "mercator"}],
+                         ids=["linear", "nearest", "mask", "mercator"])
+def test_warp_image_use_kernel_true_raises_on_cpu(monkeypatch, extra):
+    """The kernel has no CPU mode: use_kernel=True on a CPU tensor raises,
+    whatever the case, and launches nothing."""
+    _no_library(monkeypatch)
+    img = torch.as_tensor(_images(8, 1)[0])
+    K = torch.tensor([[90.0, 0, W / 2], [0, 90.0, H / 2], [0, 0, 1]])
+    kw = dict(extra)
+    if kw.pop("mask", False):
+        kw["mask"] = torch.ones((H, W), dtype=torch.bool)
+    n0 = cuda_warp.launch_count
+    with pytest.raises(ValueError, match="CUDA"):
+        warp_image(img, K, torch.eye(3), 90.0, (90, 140), use_kernel=True,
+                   **kw)
+    assert cuda_warp.launch_count == n0
+
+
+@pytest.mark.parametrize("channels", [None, 3])
+@pytest.mark.parametrize("kind", KINDS)
+def test_cuda_warp_one_image_is_a_batch_of_one(monkeypatch, kind, channels):
+    """`ops.cuda_warp.warp` on the CPU equals `warp_batched` on a batch of
+    one, gray or colour, with the scale as a number or a tensor."""
+    _no_library(monkeypatch)
+    img = _images(9, 1)[0]
+    img = torch.as_tensor(img if channels else img[..., 0])
+    c = _cams([(H, W)] * 2)
+    K = torch.tensor([[90.0, 0, W / 2], [0, 90.0, H / 2], [0, 0, 1]])
+    R = torch.as_tensor(c["R"][1])
+    k_rinv = K @ torch.linalg.inv(R)
+    roi = torch.stack(roi_bounds(K, R, 90.0, (H, W), kind))
+    corner = torch.floor(roi[:2]).to(torch.int32)
+    for scale in (90.0, torch.tensor(90.0)):
+        out, valid = cuda_warp.warp(img, k_rinv, scale, corner, roi,
+                                    (90, 140), kind)
+        ob, vb = cuda_warp.warp_batched(img[None], k_rinv[None], scale,
+                                        corner[None], roi[None], (90, 140),
+                                        kind)
+        assert torch.equal(out, ob[0]) and torch.equal(valid, vb[0])
+        assert out.shape == (90, 140) + tuple(img.shape[2:])
+        assert bool(valid.any())
 
 
 @pytest.mark.parametrize("kind", KINDS)
