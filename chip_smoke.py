@@ -184,7 +184,10 @@ result line is printed):
                 equal to stitch_pair_impl; cached_export round-tripping a
                 tensor function on the card; clear().
 29. cli       — `imagestitch_tpu_torch.cli demo --size 1080x1920` on the
-                card writes a PNG wider than 1920.
+                card writes a PNG wider than 1920; then
+                examples/stitch_photo_torch.py on the card into build/:
+                its metrics line and PNG equal to stitch_pair on
+                photo_rotation_pair() with seed 0, launches K1 2, K2 1.
 30. api_path  — the public one-image warp (`warp.warper.warp_image`) of a
                 1080p rotation view into 1458x4032: cylindrical, spherical
                 and plane one K2 launch each, bit for bit the plain path on
@@ -194,13 +197,27 @@ result line is printed):
                 mercator no
                 launch; use_kernel=True on a CPU tensor raises; every
                 subpackage's `__all__` imports.
-31. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
+31. serve_path — the serving loop (tools/serve_demo.py): the tool with
+                its defaults (192x256, the demo configuration, 32
+                requests, batch 8, 4 producers), every request ok; then
+                PipelineConfig() on 16 1080x1920 pairs made in advance,
+                batch 8, 8 producers: every request ok, K1 and K2 once per
+                dispatch, each crop equal bit for bit to
+                stitch_pairs_batched(seed=k) on its dispatch's pairs;
+                dispatch sizes, req/s, p50 / p95 latency, each dispatch's
+                wall split (dispatch, then readback + crop).
+32. warm_start — aot.stitch_pair_program(1080, 1920) into the default
+                directory and one call in-process (K1 2, K2 1), then
+                tools/warm_start_probe.py in two fresh processes: the JAX
+                probe's keys, was_cached and h_valid true, pano_sum equal
+                to the in-process call's, each process's wall.
+33. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
                 of the 1080p SIFT plane stitch, and the device's busy share
                 of one stitch of each (torch.profiler, after the timing);
                 then one `record_function` range per StageTimer stage
                 entered in a traced stitch() of four 1080p views and
                 stitch_pair of the rotation pair, with their ms.
-32. kernel_times — K1's and K3's work for one stitch, the kernels alone from
+34. kernel_times — K1's and K3's work for one stitch, the kernels alone from
                 torch.profiler kernel events (median of 20 rounds) with L2
                 flushed by a 256 MB write and warm; K1 also as ten
                 one-level launches, as the chain's one launch for 8 views,
@@ -212,7 +229,7 @@ result line is printed):
                 and warm, beside its bound and F.grid_sample. Last, since
                 once the profiler has traced the card, later launches cost
                 the host more.
-33. kernels   — one line {"kernels": [...]}: launches on the main path
+35. kernels   — one line {"kernels": [...]}: launches on the main path
                 (`launches`) and on each path (`launches_by_path`, counted
                 over the path's run), error against the plain version,
                 kernel / plain / library ms and the least time the card
@@ -2615,8 +2632,51 @@ def phase_cli(state):
     _record_path(state, "cli", launches)
     img = imread(out)
     check(img.shape[1] > 1920 and img.std() > 20, f"cli pano {img.shape}")
+    example = _run_example(state)
     emit({"phase": "cli", "pano": list(img.shape), "wall_ms": wall,
-          "launches": launches})
+          "launches": launches, "example": example})
+
+
+def _run_example(state):
+    """examples/stitch_photo_torch.py on the card into build/: its metrics
+    line equal to stitch_pair's on photo_rotation_pair() with seed 0, its
+    PNG equal to that pano, launches K1 2 and K2 1 (the "example" path)."""
+    import contextlib
+    import importlib.util
+    import io
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import stitch_pair
+    from imagestitch_tpu_torch.utils.io import imread, photo_rotation_pair
+    path = os.path.join(HERE, "examples", "stitch_photo_torch.py")
+    spec = importlib.util.spec_from_file_location("stitch_photo_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = os.path.join(HERE, "build", "example_photo_pano.png")
+    if os.path.exists(out):
+        os.remove(out)
+    text = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = mod.main([out])
+    wall = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    want = {"detect_maps": 2, "sift_octave_maps": 0, "warp_batched": 1,
+            "slab_probe": 0}
+    check(rc == 0 and launches == want,
+          f"example rc {rc}, launches {launches}, want {want}")
+    _record_path(state, "example", launches)
+    img1, img2, _, focal_true = photo_rotation_pair()
+    pano, metrics = stitch_pair(img1, img2, seed=0)
+    lines = text.getvalue().splitlines()
+    line = mod.summary(pano, metrics, focal_true)
+    check(lines == [line, f"wrote {out}"] and metrics["h_valid"],
+          f"example printed {lines}, stitch_pair gives {line!r}")
+    check(np.array_equal(imread(out), pano), "example PNG differs from "
+          "stitch_pair's pano")
+    return {"line": line, "wall_ms": wall, "launches": launches}
 
 
 API_CANVAS = (1458, 4032)      # the 1080p rotation pair's pano canvas
@@ -2773,6 +2833,161 @@ def phase_api_path(state):
     emit({"phase": "api_path", "kinds": kinds, "launches": total,
           "plain_cases": sorted(plain), "exports": exports,
           "card": state["name"], "smi": state["smi"]})
+
+
+# the serving loop at full width: requests, batch, producers, H, W
+SERVE_FULL = (16, 8, 8, 1080, 1920)
+# the JAX warm-start probe's output keys (tools/warm_start_probe.py:53-61)
+PROBE_KEYS = ["warm_start_s", "deserialize_s", "compile_s", "run_s",
+              "was_cached", "h_valid", "pano_sum"]
+
+
+def _latency_summary(latencies, wall):
+    import numpy as np
+    lat = np.array(latencies) * 1e3
+    return {"requests": len(lat), "wall_s": wall,
+            "req_per_s": len(lat) / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p95_ms": float(np.percentile(lat, 95))}
+
+
+def phase_serve_path(state):
+    """The serving loop (`tools/serve_demo.py`) on the card. (a) The tool
+    itself with its defaults (192x256, the demo configuration, 32
+    requests, batch 8, 4 producers, linger 20 ms): every request ok with a
+    pano, K1 and K2 once for the warm-up and once per dispatch. (b) The
+    loop at full width: PipelineConfig() on 16 1080x1920 pairs made
+    before the clock (each producer's pairs as the tool makes them), batch
+    8, 8 producers, after the all-zero warm-up: every request ok, K1 and
+    K2 once per dispatch, K3 and K4 never (the "serve" path), and each
+    served crop equal bit for bit to stitch_pairs_batched(seed=k) on its
+    dispatch's pairs with the demo's crop. Prints the dispatch sizes,
+    req/s, p50 and p95 latency and each dispatch's wall split (dispatch,
+    then readback + crop)."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import PipelineConfig, stitch_pairs_batched
+    from imagestitch_tpu_torch.tools import serve_demo
+
+    out = io.StringIO()
+    _reset_counts()
+    with contextlib.redirect_stdout(out):
+        rc = serve_demo.main([])
+    torch.cuda.synchronize()
+    launches_a = _read_counts()
+    lines = out.getvalue().splitlines()
+    n_a = sum(ln.strip().startswith("served batch of") for ln in lines)
+    want = {"detect_maps": 1 + n_a, "sift_octave_maps": 0,
+            "warp_batched": 1 + n_a, "slab_probe": 0}
+    check(rc == 0 and launches_a == want and "served 32 requests" in
+          lines[-1] and not any("SOME INVALID" in ln for ln in lines),
+          f"serve_demo defaults: rc {rc}, launches {launches_a}, want "
+          f"{want}; {lines[-3:]}")
+
+    n_req, batch, producers, h, w = SERVE_FULL
+    cfg = PipelineConfig()
+    per = n_req // producers
+    pairs = [list(serve_demo.synthetic_requests(7 + i, per, h, w))
+             for i in range(producers)]
+    warm_s = serve_demo.warm(cfg, batch, h, w, "cuda")
+    record = []
+    _reset_counts()
+    latencies, wall = serve_demo.serve(pairs, cfg, batch, 20.0, "cuda",
+                                       record)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    n = len(record)
+    want = {"detect_maps": n, "sift_octave_maps": 0, "warp_batched": n,
+            "slab_probe": 0}
+    check(launches == want, f"serve 1080p: launches {launches}, want {want}")
+    check(sum(e["n"] for e in record) == n_req
+          and [e["seed"] for e in record] == list(range(n)),
+          f"serve 1080p: dispatches {[(e['seed'], e['n']) for e in record]}")
+    _record_path(state, "serve", launches)
+    for e in record:
+        x = np.stack([r.pair for r in e["reqs"]])
+        panos, valids, _, _ = stitch_pairs_batched(x, cfg, seed=e["seed"])
+        panos, valids = panos.cpu().numpy(), valids.cpu().numpy()
+        for b, r in enumerate(e["reqs"]):
+            want_crop = serve_demo.crop(panos[b], valids[b])
+            check(r.ok and r.pano is not None
+                  and np.array_equal(r.pano, want_crop),
+                  f"serve 1080p dispatch {e['seed']} pair {b}: ok {r.ok}, "
+                  f"crop {None if r.pano is None else r.pano.shape} not "
+                  "equal to stitch_pairs_batched's")
+        del panos, valids
+    full = {**_latency_summary(latencies, wall), "batch": batch,
+            "producers": producers, "size": [h, w], "warm_s": warm_s,
+            "dispatches": [e["n"] for e in record],
+            "dispatch_ms": [e["dispatch_s"] * 1e3 for e in record],
+            "readback_crop_ms": [e["readback_crop_s"] * 1e3
+                                 for e in record],
+            "crops": [list(r.pano.shape) for e in record
+                      for r in e["reqs"]],
+            "crops_equal_batched": True}
+    emit({"phase": "serve_path", "defaults": {
+        "lines": [ln for ln in lines if not ln.startswith("  served")],
+        "dispatches": n_a, "launches": launches_a},
+        "full_width": full, "launches": launches,
+        "card": state["name"], "smi": state["smi"]})
+
+
+def phase_warm_start(state):
+    """The deploy path's first stitch. In-process:
+    aot.stitch_pair_program(1080, 1920) into the default directory (built
+    or found) and one call with a generator seeded 0 on
+    synthetic_pair(1080, 1920, overlap=0.4, seed=0): h_valid, K1 2 and K2
+    1 (the "warm_start" path). Then `tools/warm_start_probe.py` twice,
+    each in a fresh process (timeout 300 s): the JAX probe's keys,
+    was_cached and h_valid true, pano_sum equal to the in-process call's.
+    Prints both probe lines and each process's whole wall (with its
+    `import torch` and CUDA context, which the probe's bootstrap leaves
+    out of its own numbers)."""
+    import subprocess
+    import torch
+    from imagestitch_tpu_torch import aot
+    from imagestitch_tpu_torch.config import PipelineConfig
+    from imagestitch_tpu_torch.pipeline import _generator
+    from imagestitch_tpu_torch.utils.io import synthetic_pair
+    t0 = time.perf_counter()
+    call, cached = aot.stitch_pair_program(1080, 1920, PipelineConfig())
+    program_s = time.perf_counter() - t0
+    i1, i2, _ = synthetic_pair(1080, 1920, overlap=0.4, seed=0)
+    a = torch.as_tensor(i1, device="cuda").float()
+    b = torch.as_tensor(i2, device="cuda").float()
+    _reset_counts()
+    pano, _, _, m = call(a, b, _generator(torch.device("cuda"), 0))
+    pano_sum = float(pano.sum())
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    want = {"detect_maps": 2, "sift_octave_maps": 0, "warp_batched": 1,
+            "slab_probe": 0}
+    check(launches == want and bool(m["h_valid"]),
+          f"warm_start: launches {launches}, h_valid {bool(m['h_valid'])}")
+    _record_path(state, "warm_start", launches)
+    del pano, a, b
+    torch.cuda.empty_cache()
+    probes = []
+    for k in range(2):
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "imagestitch_tpu_torch.tools."
+             "warm_start_probe", "1080", "1920"], cwd=HERE,
+            capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        check(p.returncode == 0, f"probe {k}: rc {p.returncode}\n"
+              f"{p.stderr[-3000:]}")
+        line = json.loads(p.stdout.strip().splitlines()[-1])
+        check(list(line) == PROBE_KEYS and line["was_cached"] is True
+              and line["h_valid"] is True and line["pano_sum"] == pano_sum,
+              f"probe {k}: {line}, in-process pano_sum {pano_sum}")
+        probes.append({"probe": line, "process_wall_s": wall})
+    emit({"phase": "warm_start", "program_s": program_s,
+          "was_cached": cached, "launches": launches, "pano_sum": pano_sum,
+          "fresh_processes": probes, "card": state["name"],
+          "smi": state["smi"]})
 
 
 def _k2_api_calls(args):
@@ -3035,6 +3250,8 @@ def main(only=()) -> int:
               ("pano_path", phase_pano_path),
               ("sharded_path", phase_sharded_path), ("aot", phase_aot),
               ("cli", phase_cli), ("api_path", phase_api_path),
+              ("serve_path", phase_serve_path),
+              ("warm_start", phase_warm_start),
               ("stages", phase_stages), ("kernel_times", phase_kernel_times)]
     unknown = set(only) - {name for name, _ in phases}
     if unknown:

@@ -920,3 +920,36 @@ def test_hostseam_sharded_on_card_equals_split(cuda):
         cfg, draws)
     pano, valid, _ = _host_seam_blend(warped, masks, cfg)
     _outputs_equal(out, (pano, valid, corner, m))
+
+
+def test_serve_loop_on_card_equals_batched_call(cuda):
+    """The serving loop (`tools.serve_demo.serve`) on the card, with the
+    demo's configuration, after its all-zero warm-up: three 144x192
+    requests from three producers, batch 3. Every request served ok, the
+    detector maps and the warp launched once per dispatch, and each crop
+    equal bit for bit to `stitch_pairs_batched(seed=k)` on its dispatch's
+    pairs with the demo's crop."""
+    from imagestitch_tpu_torch import stitch_pairs_batched
+    from imagestitch_tpu_torch.tools import serve_demo
+    from imagestitch_tpu_torch.utils.io import synthetic_pair
+    cfg = serve_demo.demo_config()
+    pairs = [np.stack(synthetic_pair(144, 192, overlap=0.5,
+                                     seed=5 + k)[:2]).astype(np.float32)
+             for k in range(3)]
+    serve_demo.warm(cfg, 3, 144, 192, cuda)
+    record = []
+    c0 = _counts()
+    serve_demo.serve([[p] for p in pairs], cfg, 3, 200.0, cuda, record)
+    torch.cuda.synchronize()
+    n = len(record)
+    assert tuple(y - x for x, y in zip(c0, _counts())) == (n, 0, n)
+    assert sum(e["n"] for e in record) == 3
+    for e in record:
+        x = np.stack([r.pair for r in e["reqs"]])
+        panos, valids, _, _ = stitch_pairs_batched(x, cfg, seed=e["seed"],
+                                                   device=cuda)
+        panos, valids = panos.cpu().numpy(), valids.cpu().numpy()
+        for b, r in enumerate(e["reqs"]):
+            assert r.ok
+            assert np.array_equal(r.pano,
+                                  serve_demo.crop(panos[b], valids[b]))

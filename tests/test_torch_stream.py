@@ -27,6 +27,8 @@ package's Stitcher test configuration (plane warp, no bundle adjustment).
   canvas's valid pixels have IoU >= 0.999 against JAX's.
 - SCANS mode and the graph-cut seam (once refused) calibrate and compose
   a panning rig; without a card the default device raises.
+- The stream crops to the bbox with crop="interior" too, in both
+  packages (the JAX stream's quirk, followed).
 """
 
 import dataclasses
@@ -42,6 +44,7 @@ from imagestitch_tpu.stream import StreamStitcher as JStream  # noqa: E402
 from imagestitch_tpu.utils import io as jio  # noqa: E402
 import imagestitch_tpu_torch as tist  # noqa: E402
 from imagestitch_tpu_torch.convert import config_from_dict  # noqa: E402
+from imagestitch_tpu_torch.utils.crop import autocrop  # noqa: E402
 
 from test_torch_chain import pan_sequence  # noqa: E402
 from test_torch_stitcher import ST_CFG, all_pair_draws  # noqa: E402
@@ -232,3 +235,27 @@ def test_stream_needs_calibrate_and_a_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tist.StreamStitcher()
+
+
+def test_stream_crops_to_the_bbox_whatever_crop_says(runs):
+    """The stream ignores `cfg.crop`, as the JAX stream does
+    (`imagestitch_tpu/stream.py:142`, `:157`; ROADMAP Watch list): with
+    crop="interior" the port's calibrate and compose give crop="bbox"'s
+    panos bit for bit, and so does JAX's compose on the same registration.
+    An interior crop of that pano would be smaller, so the two modes
+    differ on these views."""
+    r = runs["shuffled"]
+    views = _views("shuffled")
+    ts = tist.StreamStitcher(r["ts"].cfg.replace(crop="interior"),
+                             device="cpu")
+    pt, _ = ts.calibrate(views, draws=all_pair_draws(
+        0, len(views), ST_CFG.ransac.num_hypotheses))
+    assert np.array_equal(pt, r["t"][0])
+    assert np.array_equal(ts.compose(views), r["t"][2])
+    js = JStream(ST_CFG.replace(crop="interior"))
+    for name in ("_cams", "_scale", "_seam_masks", "_canvas_hw"):
+        setattr(js, name, getattr(r["js"], name))
+    assert np.array_equal(js.compose(views), r["j"][2])
+    pano = r["t"][0]
+    _, (_, _, h, w) = autocrop(pano, pano.any(axis=-1))
+    assert 0 < h * w < pano.shape[0] * pano.shape[1]
