@@ -1,0 +1,8 @@
+"""Median over the traced window's stitches of `Stitcher.stitch`'s
+returned `seam_blend` stage (wall ms, synchronized)."""
+
+from stitchbench.metrics._stage import median_stage
+
+
+def read(ctx):
+    return median_stage(ctx, "seam_blend")
