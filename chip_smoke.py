@@ -2063,14 +2063,16 @@ def phase_graphcut_path(state):
     1920, overlap=0.4, seed=0), at seam_megapix 0.1 and at full
     resolution (bench.py's two graph-cut runs): h_valid, the pano's width
     within 10% of 1920 + shift, launches (K1 2, K2 1 per pair), the
-    median of 5 warm stitches, and the split's readback / seam / blend
-    ms (median of 3 front + `_host_seam_blend` runs with timings) with
-    the bytes read back (full resolution: the overlap's uint8 crop)."""
+    median of 5 warm stitches, and the split's seam_readback / seam /
+    blend stages (median of 3 front + `_host_seam_blend` runs, each under
+    an active StageTimer) with the bytes read back (full resolution: the
+    overlap's uint8 crop)."""
     import numpy as np
     import torch
     from imagestitch_tpu_torch import (PipelineConfig, SeamConfig,
                                        stitch_pair, pipeline as P)
     from imagestitch_tpu_torch.utils.io import synthetic_pair
+    from imagestitch_tpu_torch.utils.log import StageTimer
     i1, i2, shift = synthetic_pair(1080, 1920, overlap=0.4, seed=0)
     runs = {"seam_megapix_0.1": SeamConfig(kind="graphcut",
                                            seam_megapix=0.1),
@@ -2094,22 +2096,25 @@ def phase_graphcut_path(state):
         walls = _warm_walls(lambda cfg=cfg: stitch_pair(i1, i2, cfg))
         a = torch.as_tensor(i1, device="cuda")
         b = torch.as_tensor(i2, device="cuda")
-        timings, fronts = {}, []
+        timers, fronts = [], []
         for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             warped, masks, _, _ = P.stitch_pair_front_impl(a, b, cfg)
             torch.cuda.synchronize()
             fronts.append((time.perf_counter() - t0) * 1e3)
-            P._host_seam_blend(warped, masks, cfg, timings=timings)
+            timers.append(StageTimer("cuda"))
+            with timers[-1].active():
+                P._host_seam_blend(warped, masks, cfg)
         del warped, masks
         out[name] = {
             "launches": launches, "pano": list(pano.shape),
             "focal": m["focal"], "wall_ms_median": walls[2],
             "wall_ms": walls, "front_ms": float(np.median(fronts)),
-            "split_ms": {k: float(np.median(timings[k])) for k in (
-                "readback_ms", "seam_ms", "blend_ms")},
-            "readback_bytes": timings["readback_bytes"][0],
+            "split_ms": {k: float(np.median([t.summary()[k]
+                                             for t in timers]))
+                         for k in ("seam_readback", "seam", "blend")},
+            "readback_bytes": timers[0].counts()["readback_bytes"],
             "entry_stages_ms": {k: m[k] for k in ("front",
                                                   "host_seam_blend")}}
     _record_path(state, "graphcut_path", total)

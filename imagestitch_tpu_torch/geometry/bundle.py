@@ -19,6 +19,7 @@ import torch
 from torch.func import jacfwd
 
 from imagestitch_tpu_torch.types import CameraParams
+from imagestitch_tpu_torch.utils import log
 
 
 def _cross_mat(k: torch.Tensor) -> torch.Tensor:
@@ -77,7 +78,9 @@ def _lm_minimize(residuals, x0: torch.Tensor, iters: int) -> torch.Tensor:
     """Levenberg–Marquardt on a dense residual vector: damped normal
     equations, λ·0.5 on an accepted step and λ·4 on a rejected one; stops
     when an accepted step improves the error by < 1e-6 relative or λ
-    exceeds 1e8."""
+    exceeds 1e8. Each iteration (the Jacobian, the solve and the host's
+    read of the stopping test) is a stage `lm_step` of the active timer
+    and adds 1 to its counter `lm_iters`."""
 
     def err_of(x):
         r = residuals(x)
@@ -88,22 +91,28 @@ def _lm_minimize(residuals, x0: torch.Tensor, iters: int) -> torch.Tensor:
     lam = torch.tensor(1e-3, dtype=torch.float32, device=x0.device)
     err = err_of(x0)
     for _ in range(iters):
-        r = residuals(x)
-        with _JACOBIAN_LOCK:
-            J = jac(x)
-        A = J.T @ J
-        g = J.T @ r
-        D = torch.diag(torch.diagonal(A).clamp(min=1e-8))
-        dx = torch.linalg.solve(A + lam * D, g)
-        dx = torch.where(torch.isfinite(dx).all(), dx, torch.zeros_like(dx))
-        x_try = x - dx
-        e_try = err_of(x_try)
-        accept = e_try < err
-        done = (accept & (err - e_try < 1e-6 * (err + 1e-20))) | (lam > 1e8)
-        x = torch.where(accept, x_try, x)
-        lam = torch.where(accept, lam * 0.5, lam * 4.0).clamp(1e-10, 1e10)
-        err = torch.where(accept, e_try, err)
-        if bool(done):
+        log.count("lm_iters")
+        with log.stage("lm_step"):
+            r = residuals(x)
+            with _JACOBIAN_LOCK:
+                J = jac(x)
+            A = J.T @ J
+            g = J.T @ r
+            D = torch.diag(torch.diagonal(A).clamp(min=1e-8))
+            dx = torch.linalg.solve(A + lam * D, g)
+            dx = torch.where(torch.isfinite(dx).all(), dx,
+                             torch.zeros_like(dx))
+            x_try = x - dx
+            e_try = err_of(x_try)
+            accept = e_try < err
+            done = ((accept & (err - e_try < 1e-6 * (err + 1e-20)))
+                    | (lam > 1e8))
+            x = torch.where(accept, x_try, x)
+            lam = torch.where(accept, lam * 0.5, lam * 4.0).clamp(1e-10,
+                                                                  1e10)
+            err = torch.where(accept, e_try, err)
+            stop = bool(done)
+        if stop:
             break
     return x
 

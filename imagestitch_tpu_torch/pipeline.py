@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 
 import numpy as np
 import torch
@@ -67,6 +66,7 @@ from imagestitch_tpu_torch.seam.graphcut import graphcut_seam_pair
 from imagestitch_tpu_torch.seam.voronoi import voronoi_seam_pair
 from imagestitch_tpu_torch.types import CameraParams, stack
 from imagestitch_tpu_torch.utils.crop import autocrop
+from imagestitch_tpu_torch.utils import log
 from imagestitch_tpu_torch.utils.log import StageTimer
 from imagestitch_tpu_torch.warp.projectors import _camera_mats
 from imagestitch_tpu_torch.warp.warper import roi_bounds, warp_batched_plain
@@ -512,9 +512,39 @@ CROP_MARGIN = 64
 CROP_ALIGN = 128
 
 
+def _read_back(*tensors) -> list[np.ndarray]:
+    """The tensors as host arrays; their bytes add to the active timer's
+    `readback_bytes`."""
+    out = [t.cpu().numpy() for t in tensors]
+    log.count("readback_bytes", sum(a.nbytes for a in out))
+    return out
+
+
+def _pair_seam_crop(masks: torch.Tensor):
+    """A full-resolution graph-cut pair's seam crop: the overlap's bbox
+    grown by a 64-px margin, its extent aligned to 128 (toward the origin
+    when clipped), with the full-canvas marginals. Returns ((y0, x0, hh,
+    ww) or None where the pair has no overlap or the crop is the whole
+    canvas, (colm, rowm) host arrays)."""
+    Hc, Wc = masks.shape[1:3]
+    bb, colm, rowm = _overlap_bbox_device(masks[0], masks[1])
+    bb = bb.cpu().numpy()
+    marginals = (tuple(colm.cpu().numpy()), tuple(rowm.cpu().numpy()))
+    if not bb[4]:
+        return None, marginals
+    y0 = max(int(bb[0]) - CROP_MARGIN, 0)
+    x0 = max(int(bb[1]) - CROP_MARGIN, 0)
+    y1 = min(int(bb[2]) + CROP_MARGIN, Hc)
+    x1 = min(int(bb[3]) + CROP_MARGIN, Wc)
+    y0 = max(y1 - -(-(y1 - y0) // CROP_ALIGN) * CROP_ALIGN, 0)
+    x0 = max(x1 - -(-(x1 - x0) // CROP_ALIGN) * CROP_ALIGN, 0)
+    if (y1 - y0) * (x1 - x0) >= Hc * Wc:
+        return None, marginals
+    return (y0, x0, y1 - y0, x1 - x0), marginals
+
+
 def _host_seam_blend(warped: torch.Tensor, masks: torch.Tensor,
-                     cfg: PipelineConfig, edges=None,
-                     timings: dict | None = None):
+                     cfg: PipelineConfig, edges=None):
     """The host-seam split: resolve the host seams of device canvases and
     blend on the device. Returns (pano, valid, seam masks).
 
@@ -522,88 +552,57 @@ def _host_seam_blend(warped: torch.Tensor, masks: torch.Tensor,
       back, solved at that scale, and the low-resolution masks go back up
       (`_blend_lowres_seams`); the seam masks returned are those.
     - A full-resolution graph-cut pair reads back only its overlap's
-      bbox, grown by a 64-px margin and its extent aligned to 128 (toward
-      the origin when clipped), as uint8, with the full-canvas
-      marginals, and splices the solved crop into the masks.
+      crop (`_pair_seam_crop`) as uint8, with the full-canvas marginals,
+      and splices the solved crop into the masks.
     - Otherwise the whole canvases come back: uint8-quantized for the
       graph cut, float32 for the full DP.
-    `timings`, when given, collects wall ms per phase (readback_ms,
-    seam_ms, blend_ms; each a list) and the bytes read back
-    (readback_bytes); it synchronizes the device between phases."""
-    sync = timings is not None and warped.device.type == "cuda"
-
-    def mark(name, t0):
-        if timings is not None:
-            if sync:
-                torch.cuda.synchronize(warped.device)
-            timings.setdefault(name, []).append(
-                (time.perf_counter() - t0) * 1e3)
-        return time.perf_counter()
-
-    def note_bytes(*arrays):
-        if timings is not None:
-            timings.setdefault("readback_bytes", []).append(
-                int(sum(a.nbytes for a in arrays)))
-
-    n, Hc, Wc = masks.shape[:3]
-    t0 = time.perf_counter()
-    grid = _seam_grid((Hc, Wc), cfg.seam.seam_megapix)
+    Stages of the active timer: `seam_readback` (the seam inputs to the
+    host; their canvases' and masks' bytes add to `readback_bytes`),
+    `seam` (the host solve), `blend`."""
+    grid = _seam_grid(masks.shape[1:3], cfg.seam.seam_megapix)
     if grid is not None:
         yi, xi, yb, xb = grid
-        w_lo, m_lo = _decimate_for_seam(warped, masks, yi, xi)
-        w_lo, m_lo = w_lo.cpu().numpy(), m_lo.cpu().numpy()
-        note_bytes(w_lo, m_lo)
-        t0 = mark("readback_ms", t0)
-        seam_lo = _host_seam_masks(w_lo, m_lo, _full_res(cfg), edges=edges)
-        t0 = mark("seam_ms", t0)
-        pano, valid = _blend_lowres_seams(
-            warped, torch.as_tensor(seam_lo, device=masks.device), masks,
-            yb, xb, cfg)
-        mark("blend_ms", t0)
+        with log.stage("seam_readback"):
+            w_lo, m_lo = _read_back(*_decimate_for_seam(warped, masks, yi,
+                                                        xi))
+        with log.stage("seam"):
+            seam_lo = _host_seam_masks(w_lo, m_lo, _full_res(cfg),
+                                       edges=edges)
+        with log.stage("blend"):
+            pano, valid = _blend_lowres_seams(
+                warped, torch.as_tensor(seam_lo, device=masks.device),
+                masks, yb, xb, cfg)
         return pano, valid, seam_lo
-    if n == 2 and cfg.seam.kind.startswith("graphcut"):
-        bb, colm, rowm = _overlap_bbox_device(masks[0], masks[1])
-        bb = bb.cpu().numpy()
-        colm, rowm = colm.cpu().numpy(), rowm.cpu().numpy()
-        if bb[4]:
-            y0 = max(int(bb[0]) - CROP_MARGIN, 0)
-            x0 = max(int(bb[1]) - CROP_MARGIN, 0)
-            y1 = min(int(bb[2]) + CROP_MARGIN, Hc)
-            x1 = min(int(bb[3]) + CROP_MARGIN, Wc)
-            y0 = max(y1 - -(-(y1 - y0) // CROP_ALIGN) * CROP_ALIGN, 0)
-            x0 = max(x1 - -(-(x1 - x0) // CROP_ALIGN) * CROP_ALIGN, 0)
-            if (y1 - y0) * (x1 - x0) < Hc * Wc:
-                w_u8, m_crop = _crop_quantize_impl(warped, masks, y0, x0,
-                                                   y1 - y0, x1 - x0)
-                w_u8, m_crop = w_u8.cpu().numpy(), m_crop.cpu().numpy()
-                note_bytes(w_u8, m_crop)
-                t0 = mark("readback_ms", t0)
+    graphcut = cfg.seam.kind.startswith("graphcut")
+    if masks.shape[0] == 2 and graphcut:
+        with log.stage("seam_readback"):
+            crop, marginals = _pair_seam_crop(masks)
+            if crop is not None:
+                w_u8, m_crop = _read_back(*_crop_quantize_impl(
+                    warped, masks, *crop))
+        if crop is not None:
+            with log.stage("seam"):
                 sm_crop = _host_seam_masks(
                     w_u8.astype(np.float32), m_crop, cfg, edges=edges,
-                    pair_marginals=(tuple(colm), tuple(rowm)),
-                    crop_origin=(y0, x0))
-                t0 = mark("seam_ms", t0)
+                    pair_marginals=marginals, crop_origin=crop[:2])
+            with log.stage("blend"):
                 seam_masks = _splice_seam_crop(
                     masks, torch.as_tensor(sm_crop, device=masks.device),
-                    y0, x0)
+                    *crop[:2])
                 pano, valid = _blend_resolved(warped, seam_masks, masks,
                                               cfg)
-                mark("blend_ms", t0)
-                return pano, valid, seam_masks
-        t0 = time.perf_counter()
-    graphcut = cfg.seam.kind.startswith("graphcut")
-    w_host = (_quantize_u8(warped) if graphcut else warped).cpu().numpy()
-    m_host = masks.cpu().numpy()
-    note_bytes(w_host, m_host)
-    if graphcut:
-        w_host = w_host.astype(np.float32)
-    t0 = mark("readback_ms", t0)
-    seam_masks = _host_seam_masks(w_host, m_host, cfg, edges=edges)
-    t0 = mark("seam_ms", t0)
-    pano, valid = _blend_resolved(
-        warped, torch.as_tensor(seam_masks, device=masks.device), masks,
-        cfg)
-    mark("blend_ms", t0)
+            return pano, valid, seam_masks
+    with log.stage("seam_readback"):
+        w_host, m_host = _read_back(
+            _quantize_u8(warped) if graphcut else warped, masks)
+        if graphcut:
+            w_host = w_host.astype(np.float32)
+    with log.stage("seam"):
+        seam_masks = _host_seam_masks(w_host, m_host, cfg, edges=edges)
+    with log.stage("blend"):
+        pano, valid = _blend_resolved(
+            warped, torch.as_tensor(seam_masks, device=masks.device),
+            masks, cfg)
     return pano, valid, seam_masks
 
 
@@ -614,16 +613,20 @@ def register_pair(img1: torch.Tensor, img2: torch.Tensor,
     the work scale of the larger extent), matches + homography, cameras,
     bundle adjustment, wave correction, full-resolution intrinsics (in
     SCANS mode, with `cfg` normalized by `_normalize_scans`: the affine
-    motion and the pair's affine cameras). Returns (f1, f2, mi, cams)."""
+    motion and the pair's affine cameras). Stages of the active timer:
+    `detect`, `match`, and `pair_cameras`' own. Returns (f1, f2, mi,
+    cams)."""
     hw1, hw2 = tuple(img1.shape[:2]), tuple(img2.shape[:2])
     ws = _megapix_scale(cfg.work_megapix,
                         (max(hw1[0], hw2[0]), max(hw1[1], hw2[1])))
-    f1 = detect_features(_work_grays(rgb_to_gray(img1), hw1, ws),
-                         cfg.detector)
-    f2 = detect_features(_work_grays(rgb_to_gray(img2), hw2, ws),
-                         cfg.detector)
-    mi = match_pair(f1, f2, 0, 1, cfg.matcher, cfg.ransac, draws=draws,
-                    generator=generator)
+    with log.stage("detect"):
+        f1 = detect_features(_work_grays(rgb_to_gray(img1), hw1, ws),
+                             cfg.detector)
+        f2 = detect_features(_work_grays(rgb_to_gray(img2), hw2, ws),
+                             cfg.detector)
+    with log.stage("match"):
+        mi = match_pair(f1, f2, 0, 1, cfg.matcher, cfg.ransac, draws=draws,
+                        generator=generator)
     cams = pair_cameras(f1, f2, mi, (hw1, hw2), cfg, ws)
     return f1, f2, mi, cams
 
@@ -638,7 +641,8 @@ def pair_cameras(f1, f2, mi, hws, cfg: PipelineConfig,
     In SCANS mode the canvas is image 0's frame: G_0 = I and G_1 = H⁻¹
     (H maps image-0 pixels to image-1 pixels), scaled from the work scale;
     a pair's least-squares affine is already the joint affine optimum, so
-    there is no bundle adjustment."""
+    there is no bundle adjustment. Stages of the active timer: `cameras`
+    and `bundle_adjust` (with its `lm_step`s)."""
     dev = mi.H.device
     if cfg.mode == "scans":
         eye = torch.eye(3, dtype=torch.float32, device=dev)
@@ -649,16 +653,18 @@ def pair_cameras(f1, f2, mi, hws, cfg: PipelineConfig,
         return affine_cameras(Gs)
     sizes = torch.tensor([[_scaled_dim(h, ws), _scaled_dim(w, ws)]
                           for h, w in hws], dtype=torch.int32, device=dev)
-    cams = estimate_cameras(mi.H[None], mi.h_valid[None], sizes)
+    with log.stage("cameras"):
+        cams = estimate_cameras(mi.H[None], mi.h_valid[None], sizes)
     if cfg.camera.ba_refine:
-        pairs = mi.pairs.long()
-        cams = bundle_adjust(
-            cams, f1.xy[pairs[:, 0]][None], f2.xy[pairs[:, 1]][None],
-            (mi.inliers & mi.valid)[None],
-            torch.zeros(1, dtype=torch.int64, device=dev),
-            torch.ones(1, dtype=torch.int64, device=dev),
-            (mi.confidence > cfg.camera.ba_conf_thresh)[None],
-            cfg.camera.ba_iters, cfg.camera.ba_kind)
+        with log.stage("bundle_adjust"):
+            pairs = mi.pairs.long()
+            cams = bundle_adjust(
+                cams, f1.xy[pairs[:, 0]][None], f2.xy[pairs[:, 1]][None],
+                (mi.inliers & mi.valid)[None],
+                torch.zeros(1, dtype=torch.int64, device=dev),
+                torch.ones(1, dtype=torch.int64, device=dev),
+                (mi.confidence > cfg.camera.ba_conf_thresh)[None],
+                cfg.camera.ba_iters, cfg.camera.ba_kind)
     return _finish_cameras(cams, cfg, ws)
 
 
@@ -687,7 +693,8 @@ def stitch_pair_front_impl(img1: torch.Tensor, img2: torch.Tensor,
     """Stages 1-7 (detect -> gain-compensated shared-frame warps) on two
     (H, W, 3) images on one device, possibly of different sizes. `draws`:
     optional (u_first, u_refit) RANSAC draws (`match_pair`). SCANS mode
-    is normalized here (`_normalize_scans`). Returns (warped (2, Hc, Wc,
+    is normalized here (`_normalize_scans`). Stages of the active timer:
+    `register_pair`'s, `warp`, `exposure`. Returns (warped (2, Hc, Wc,
     3), masks (2, Hc, Wc), corner, metrics)."""
     cfg = _normalize_scans(cfg)
     H1, W1 = img1.shape[:2]
@@ -708,9 +715,11 @@ def stitch_pair_front_impl(img1: torch.Tensor, img2: torch.Tensor,
                          mode="replicate")[0].permute(1, 2, 0)
         imgs = torch.stack([pad(img1, H1, W1), pad(img2, H2, W2)])
         src_sizes = np.asarray([[H1, W1], [H2, W2]], np.int32)
-    warped, masks, corner, overflow, roi_uvs = _warp_all_shared(
-        imgs, cams, scale, canvas_hw, cfg, src_sizes=src_sizes)
-    warped = _apply_exposure(warped, masks, cfg)
+    with log.stage("warp"):
+        warped, masks, corner, overflow, roi_uvs = _warp_all_shared(
+            imgs, cams, scale, canvas_hw, cfg, src_sizes=src_sizes)
+    with log.stage("exposure"):
+        warped = _apply_exposure(warped, masks, cfg)
     return warped, masks, corner, pair_metrics(f1, f2, mi, cams, overflow,
                                                roi_uvs)
 
@@ -721,12 +730,14 @@ def stitch_pair_impl(img1: torch.Tensor, img2: torch.Tensor,
     """Two (H, W, 3) images on one device -> (pano canvas, valid, corner,
     metrics). The seam and blend take `cfg` as given (the front
     normalizes SCANS mode for itself, as in the JAX package); a host seam
-    raises ValueError here (`stitch_pair` splits around it)."""
+    raises ValueError here (`stitch_pair` splits around it). Stages of
+    the active timer: the front's, `seam_blend`."""
     H = max(img1.shape[0], img2.shape[0])
     W = max(img1.shape[1], img2.shape[1])
     warped, masks, corner, metrics = stitch_pair_front_impl(
         img1, img2, cfg, draws, generator)
-    pano, valid = _seam_and_blend(warped, masks, cfg, src_w=W, src_h=H)
+    with log.stage("seam_blend"):
+        pano, valid = _seam_and_blend(warped, masks, cfg, src_w=W, src_h=H)
     return pano, valid, corner, metrics
 
 
@@ -752,9 +763,12 @@ def _generator(dev: torch.device, seed: int) -> torch.Generator:
 
 
 def _to_uint8(pano: torch.Tensor, valid: torch.Tensor, crop: str = "bbox"):
-    """Read the canvas back, crop it (`_crop_valid`), clip to uint8."""
-    p, _ = _crop_valid(pano.cpu().numpy(), valid.cpu().numpy(), crop)
-    return np.clip(p, 0, 255).astype(np.uint8)
+    """Read the canvas back, crop it (`_crop_valid`), clip to uint8: the
+    active timer's stage `readback_crop`, the canvas's and mask's bytes
+    added to `readback_bytes`."""
+    with log.stage("readback_crop"):
+        p, _ = _crop_valid(*_read_back(pano, valid), crop)
+        return np.clip(p, 0, 255).astype(np.uint8)
 
 
 def stitch_pair(img1, img2, config: PipelineConfig | None = None,
@@ -766,7 +780,10 @@ def stitch_pair(img1, img2, config: PipelineConfig | None = None,
     device, unless `draws` injects them (see stitch_pair_front_impl). A
     host seam splits the stitch into the front and `_host_seam_blend`
     (metrics "front" and "host_seam_blend"; otherwise
-    "stitch_pair_total")."""
+    "stitch_pair_total"). The metrics also hold the wall ms of the stages
+    inside (detect, match, cameras, bundle_adjust, lm_step, warp,
+    exposure; seam_blend, or seam_readback, seam and blend; readback_crop)
+    and the counters `lm_iters` and `readback_bytes`."""
     cfg = config or PipelineConfig()
     dev = resolve_device(device)
     set_full_precision()
@@ -774,22 +791,25 @@ def stitch_pair(img1, img2, config: PipelineConfig | None = None,
     gen = _generator(dev, seed)
     a = torch.as_tensor(np.asarray(img1), device=dev)
     b = torch.as_tensor(np.asarray(img2), device=dev)
-    if _needs_host_seam(cfg):
-        with timer.stage("front"):
-            warped, masks, _, metrics = stitch_pair_front_impl(
-                a, b, cfg, draws, gen)
-        with timer.stage("host_seam_blend"):
-            pano, valid, _ = _host_seam_blend(warped, masks, cfg)
-            out = _to_uint8(pano, valid, cfg.crop)
-    else:
-        with timer.stage("stitch_pair_total"):
-            pano, valid, _, metrics = stitch_pair_impl(a, b, cfg, draws, gen)
-            out = _to_uint8(pano, valid, cfg.crop)
+    with timer.active():
+        if _needs_host_seam(cfg):
+            with timer.stage("front"):
+                warped, masks, _, metrics = stitch_pair_front_impl(
+                    a, b, cfg, draws, gen)
+            with timer.stage("host_seam_blend"):
+                pano, valid, _ = _host_seam_blend(warped, masks, cfg)
+                out = _to_uint8(pano, valid, cfg.crop)
+        else:
+            with timer.stage("stitch_pair_total"):
+                pano, valid, _, metrics = stitch_pair_impl(a, b, cfg, draws,
+                                                           gen)
+                out = _to_uint8(pano, valid, cfg.crop)
     m = {}
     for k, v in metrics.items():
         v = v.detach().cpu().numpy()
         m[k] = v.item() if v.size == 1 else v.tolist()
     m.update(timer.summary())
+    m.update(timer.counts())
     return out, m
 
 
@@ -843,17 +863,21 @@ def register_chain(imgs: torch.Tensor,
     global affines chained along the pairs (`_chain_affines`, with the
     skip pairs bridging one broken link), with no bundle adjustment.
     `steps` detects and matches (`OneDevice`, or a split over a mesh).
+    Stages of the active timer: `detect`, `match` (the consecutive and
+    the skip pairs), `cameras`, `bundle_adjust` (with its `lm_step`s).
     Returns (feats, mis (the consecutive pairs), cams, reachable (N,)
     bool)."""
     N, H, W = imgs.shape[:3]
     dev = imgs.device
     ws = _megapix_scale(cfg.work_megapix, (H, W))
-    feats = steps.detect(_work_grays(rgb_to_gray(imgs), (H, W), ws),
-                         cfg.detector)
+    with log.stage("detect"):
+        feats = steps.detect(_work_grays(rgb_to_gray(imgs), (H, W), ws),
+                             cfg.detector)
 
     def match(pairs):
-        return steps.match(feats, pairs, cfg.matcher, cfg.ransac, draws,
-                           generator)
+        with log.stage("match"):
+            return steps.match(feats, pairs, cfg.matcher, cfg.ransac, draws,
+                               generator)
 
     def good_of(mis):
         return mis.h_valid & (mis.confidence > cfg.matcher.conf_thresh)
@@ -877,22 +901,25 @@ def register_chain(imgs: torch.Tensor,
         if ws < 1.0:
             Gs = _upscale_affine(Gs, 1.0 / ws)
         return feats, mis, affine_cameras(Gs), reachable
-    if mis2 is not None:
-        cams, reachable = estimate_cameras_spliced(
-            mis.H, mis.h_valid, good, mis2.H, mis2.h_valid, good2, sizes)
-        # the skip pairs constrain the bundle adjustment too
-        pairs_ba = pairs + pairs2
-        mis_ba = stack(mis_list + mis2_list)
-    else:
-        reachable = torch.cat([
-            torch.ones(1, dtype=torch.bool, device=dev),
-            torch.cumprod(good.to(torch.int32), 0).to(torch.bool)])
-        cams = estimate_cameras(mis.H, mis.h_valid, sizes)
-        pairs_ba, mis_ba = pairs, mis
+    with log.stage("cameras"):
+        if mis2 is not None:
+            cams, reachable = estimate_cameras_spliced(
+                mis.H, mis.h_valid, good, mis2.H, mis2.h_valid, good2,
+                sizes)
+            # the skip pairs constrain the bundle adjustment too
+            pairs_ba = pairs + pairs2
+            mis_ba = stack(mis_list + mis2_list)
+        else:
+            reachable = torch.cat([
+                torch.ones(1, dtype=torch.bool, device=dev),
+                torch.cumprod(good.to(torch.int32), 0).to(torch.bool)])
+            cams = estimate_cameras(mis.H, mis.h_valid, sizes)
+            pairs_ba, mis_ba = pairs, mis
     if cfg.camera.ba_refine:
-        cams = _adjust(cams, feats, mis_ba, pairs_ba,
-                       (mis_ba.confidence > cfg.camera.ba_conf_thresh)
-                       & mis_ba.h_valid, cfg)
+        with log.stage("bundle_adjust"):
+            cams = _adjust(cams, feats, mis_ba, pairs_ba,
+                           (mis_ba.confidence > cfg.camera.ba_conf_thresh)
+                           & mis_ba.h_valid, cfg)
     return feats, mis, _finish_cameras(cams, cfg, ws), reachable
 
 
@@ -905,7 +932,8 @@ def stitch_chain_front_impl(imgs: torch.Tensor,
     device: `register_chain`, then one warp launch for all N views (the
     unreachable ones masked out) and gain compensation; SCANS mode is
     normalized here. `steps`: detect, match and warp (`OneDevice`, or a
-    split over a mesh). Returns (warped (N, Hc, Wc, 3), masks (N, Hc,
+    split over a mesh). Stages of the active timer: `register_chain`'s,
+    `warp`, `exposure`. Returns (warped (N, Hc, Wc, 3), masks (N, Hc,
     Wc), corner, metrics)."""
     cfg = _normalize_scans(cfg)
     N, H, W = imgs.shape[:3]
@@ -914,10 +942,12 @@ def stitch_chain_front_impl(imgs: torch.Tensor,
                                              steps)
     scale = warp_scale(cams)
     canvas_hw = _pano_canvas_shape((H, W), N, cfg)
-    warped, masks, corner, overflow, roi_uvs = _warp_all_shared(
-        imgs, cams, scale, canvas_hw, cfg, warp=steps.warp)
-    masks = masks & reachable[:, None, None]
-    warped = _apply_exposure(warped, masks, cfg)
+    with log.stage("warp"):
+        warped, masks, corner, overflow, roi_uvs = _warp_all_shared(
+            imgs, cams, scale, canvas_hw, cfg, warp=steps.warp)
+        masks = masks & reachable[:, None, None]
+    with log.stage("exposure"):
+        warped = _apply_exposure(warped, masks, cfg)
     metrics = {
         "num_inliers": mis.num_inliers, "confidence": mis.confidence,
         "h_valid": mis.h_valid, "focal": cams.focal[0],
@@ -932,11 +962,13 @@ def stitch_chain_impl(imgs: torch.Tensor,
                       generator: torch.Generator | None = None):
     """(N, H, W, 3) chain on one device -> (pano canvas, valid, corner,
     metrics): the front, then the seams along the chain and the blend
-    (`cfg` as given; a host seam raises ValueError here)."""
+    (`cfg` as given; a host seam raises ValueError here), the active
+    timer's stage `seam_blend`."""
     H, W = imgs.shape[1:3]
     warped, masks, corner, metrics = stitch_chain_front_impl(
         imgs, cfg, draws, generator)
-    pano, valid = _seam_and_blend(warped, masks, cfg, src_w=W, src_h=H)
+    with log.stage("seam_blend"):
+        pano, valid = _seam_and_blend(warped, masks, cfg, src_w=W, src_h=H)
     return pano, valid, corner, metrics
 
 
@@ -958,7 +990,8 @@ def stitch_chain(images, config: PipelineConfig | None = None,
 
     Runs on `device` (default: the CUDA card; with no card it raises).
     RANSAC draws come from a torch.Generator seeded with `seed` on that
-    device, unless `draws` injects them per pair (i, j)."""
+    device, unless `draws` injects them per pair (i, j). The metrics also
+    hold the stages inside and the counters, as `stitch_pair`'s do."""
     cfg = config or PipelineConfig()
     dev = resolve_device(device)
     set_full_precision()
@@ -966,20 +999,22 @@ def stitch_chain(images, config: PipelineConfig | None = None,
     imgs = torch.as_tensor(np.stack([np.asarray(im) for im in images]),
                            device=dev)
     gen = _generator(dev, seed)
-    if _needs_host_seam(cfg):
-        with timer.stage("front"):
-            warped, masks, _, metrics = stitch_chain_front_impl(
-                imgs, cfg, draws, gen)
-        with timer.stage("host_seam_blend"):
-            pano, valid, _ = _host_seam_blend(warped, masks, cfg)
-            out = _to_uint8(pano, valid, cfg.crop)
-    else:
-        with timer.stage("stitch_chain_total"):
-            pano, valid, _, metrics = stitch_chain_impl(imgs, cfg, draws,
-                                                        gen)
-            out = _to_uint8(pano, valid, cfg.crop)
+    with timer.active():
+        if _needs_host_seam(cfg):
+            with timer.stage("front"):
+                warped, masks, _, metrics = stitch_chain_front_impl(
+                    imgs, cfg, draws, gen)
+            with timer.stage("host_seam_blend"):
+                pano, valid, _ = _host_seam_blend(warped, masks, cfg)
+                out = _to_uint8(pano, valid, cfg.crop)
+        else:
+            with timer.stage("stitch_chain_total"):
+                pano, valid, _, metrics = stitch_chain_impl(imgs, cfg, draws,
+                                                            gen)
+                out = _to_uint8(pano, valid, cfg.crop)
     m = {k: v.detach().cpu().numpy().tolist() for k, v in metrics.items()}
     m.update(timer.summary())
+    m.update(timer.counts())
     return out, m
 
 
@@ -1003,13 +1038,12 @@ class _StageDumper:
                                 **{k: _np(v) for k, v in arrays.items()})
 
 
-def register_views(imgs: torch.Tensor, cfg: PipelineConfig,
-                   timer: StageTimer, draws=None,
+def register_views(imgs: torch.Tensor, cfg: PipelineConfig, draws=None,
                    generator: torch.Generator | None = None,
                    src_sizes: np.ndarray | None = None, dump=None):
     """Stages 1-5 of the N-view stitchers (`Stitcher`,
     `StreamStitcher`) on (N, H, W, 3) float32 images on one device, each
-    step a stage of `timer`: one batched detect on grays at the work
+    step a stage of the active timer: one batched detect on grays at the work
     scale (with `src_sizes`, the host (N, 2) true sizes of edge-padded
     views, keypoints whose patch would reach past a view's true border
     are dropped, the border growing by scale_factor per pyramid level);
@@ -1034,7 +1068,7 @@ def register_views(imgs: torch.Tensor, cfg: PipelineConfig,
     else:
         work_sizes = np.asarray(
             [[_scaled_dim(H, ws), _scaled_dim(W, ws)]] * n, np.int32)
-    with timer.stage("detect"):
+    with log.stage("detect"):
         feats = detect_batched(_work_grays(rgb_to_gray(imgs), (H, W), ws),
                                cfg_d)
         if src_sizes is not None:
@@ -1050,14 +1084,14 @@ def register_views(imgs: torch.Tensor, cfg: PipelineConfig,
     dump("features", xy=feats.xy, valid=feats.valid,
          response=feats.response, level=feats.level)
 
-    with timer.stage("match"):
+    with log.stage("match"):
         pairs = pair_list(n, cfg.matcher.range_width)
         ms = match_all(feats, cfg.matcher, cfg.ransac, draws, generator)
     dump("matches", H=ms.H, num_inliers=ms.num_inliers,
          confidence=ms.confidence, h_valid=ms.h_valid,
          src_idx=ms.src_idx, dst_idx=ms.dst_idx)
 
-    with timer.stage("cameras"):
+    with log.stage("cameras"):
         conf = _np(ms.confidence)
         keep = conf > cfg.matcher.conf_thresh
         if cfg.mode == "scans":
@@ -1071,7 +1105,7 @@ def register_views(imgs: torch.Tensor, cfg: PipelineConfig,
 
     if cfg.mode != "scans":
         if cfg.camera.ba_refine:
-            with timer.stage("bundle_adjust"):
+            with log.stage("bundle_adjust"):
                 cams = _adjust(cams, feats, ms, pairs,
                                torch.as_tensor(keep, device=dev)
                                & ms.h_valid, cfg)
@@ -1107,7 +1141,9 @@ class Stitcher:
         `draws`: optional mapping (i, j) -> (u_first, u_refit) RANSAC draws
         per matched pair. `dump_stages`: a directory to write
         features.npz, matches.npz, cameras.npz, warped.npz, pano.npz and,
-        for a host seam, seams.npz. Returns (pano uint8, metrics)."""
+        for a host seam, seams.npz. Returns (pano uint8, metrics); the
+        metrics hold the stages' wall ms and the counters `lm_iters` and
+        `readback_bytes`."""
         cfg = self.cfg
         dev = self.device
         n = len(images)
@@ -1118,60 +1154,62 @@ class Stitcher:
                                None if draws is None else draws[(0, 1)])
         set_full_precision()
         timer = StageTimer(dev)
-        dump = _StageDumper(dump_stages)
-        gen = _generator(dev, seed)
+        with timer.active():
+            dump = _StageDumper(dump_stages)
+            gen = _generator(dev, seed)
 
-        shapes = [tuple(np.asarray(im).shape[:2]) for im in images]
-        H = max(h for h, _ in shapes)
-        W = max(w for _, w in shapes)
-        full_sizes = (np.asarray(shapes, np.int32) if len(set(shapes)) > 1
-                      else None)
-        images = [np.pad(np.asarray(im), ((0, H - h), (0, W - w), (0, 0)),
-                         mode="edge") for im, (h, w) in zip(images, shapes)]
-        imgs = torch.as_tensor(np.stack(images), device=dev).to(
-            torch.float32)
+            shapes = [tuple(np.asarray(im).shape[:2]) for im in images]
+            H = max(h for h, _ in shapes)
+            W = max(w for _, w in shapes)
+            full_sizes = (np.asarray(shapes, np.int32)
+                          if len(set(shapes)) > 1 else None)
+            images = [np.pad(np.asarray(im),
+                             ((0, H - h), (0, W - w), (0, 0)), mode="edge")
+                      for im, (h, w) in zip(images, shapes)]
+            imgs = torch.as_tensor(np.stack(images), device=dev).to(
+                torch.float32)
 
-        cams, tree_edges, reachable, conf = register_views(
-            imgs, cfg, timer, draws, gen, full_sizes, dump)
+            cams, tree_edges, reachable, conf = register_views(
+                imgs, cfg, draws, gen, full_sizes, dump)
 
-        # composite at compose_megapix: the views resized per channel, the
-        # cameras scaled to match; the pano comes out at that scale
-        cs = _megapix_scale(cfg.compose_megapix, (H, W))
-        if cs < 1.0:
-            H, W = _scaled_dim(H, cs), _scaled_dim(W, cs)
-            imgs = resize_linear_mxu(imgs.permute(0, 3, 1, 2),
-                                     (H, W)).permute(0, 2, 3, 1)
-            if cfg.mode == "scans":
-                cams = cams.replace(R=_upscale_affine(cams.R, cs))
-            else:
-                cams = _upscale_cameras(cams, cs)
-            if full_sizes is not None:
-                full_sizes = np.maximum(np.round(full_sizes * cs),
-                                        1).astype(np.int32)
+            # composite at compose_megapix: the views resized per channel,
+            # the cameras scaled to match; the pano comes out at that scale
+            cs = _megapix_scale(cfg.compose_megapix, (H, W))
+            if cs < 1.0:
+                H, W = _scaled_dim(H, cs), _scaled_dim(W, cs)
+                imgs = resize_linear_mxu(imgs.permute(0, 3, 1, 2),
+                                         (H, W)).permute(0, 2, 3, 1)
+                if cfg.mode == "scans":
+                    cams = cams.replace(R=_upscale_affine(cams.R, cs))
+                else:
+                    cams = _upscale_cameras(cams, cs)
+                if full_sizes is not None:
+                    full_sizes = np.maximum(np.round(full_sizes * cs),
+                                            1).astype(np.int32)
 
-        with timer.stage("warp"):
-            scale = warp_scale(cams)
-            canvas_hw = _pano_canvas_shape((H, W), n, cfg)
-            warped, masks, corner, overflow, _ = _warp_all_shared(
-                imgs, cams, scale, canvas_hw, cfg, src_sizes=full_sizes)
-            masks = masks & torch.as_tensor(reachable, device=dev)[
-                :, None, None]
+            with timer.stage("warp"):
+                scale = warp_scale(cams)
+                canvas_hw = _pano_canvas_shape((H, W), n, cfg)
+                warped, masks, corner, overflow, _ = _warp_all_shared(
+                    imgs, cams, scale, canvas_hw, cfg, src_sizes=full_sizes)
+                masks = masks & torch.as_tensor(reachable, device=dev)[
+                    :, None, None]
 
-        with timer.stage("exposure"):
-            warped = _apply_exposure(warped, masks, cfg)
-        dump("warped", warped=warped, masks=masks, corner=corner)
+            with timer.stage("exposure"):
+                warped = _apply_exposure(warped, masks, cfg)
+            dump("warped", warped=warped, masks=masks, corner=corner)
 
-        with timer.stage("seam_blend"):
-            if _needs_host_seam(cfg):
-                pano, valid, seam_masks = _host_seam_blend(
-                    warped, masks, cfg, edges=tree_edges)
-                dump("seams", seam_masks=seam_masks)
-            else:
-                pano, valid = _seam_and_blend(warped, masks, cfg, src_w=W,
-                                              src_h=H, edges=tree_edges)
-            pano, valid = _crop_valid(pano.cpu().numpy(),
-                                      valid.cpu().numpy(), cfg.crop)
-        dump("pano", pano=pano, valid=valid)
+            with timer.stage("seam_blend"):
+                if _needs_host_seam(cfg):
+                    pano, valid, seam_masks = _host_seam_blend(
+                        warped, masks, cfg, edges=tree_edges)
+                    dump("seams", seam_masks=seam_masks)
+                else:
+                    pano, valid = _seam_and_blend(
+                        warped, masks, cfg, src_w=W, src_h=H,
+                        edges=tree_edges)
+                pano, valid = _crop_valid(*_read_back(pano, valid), cfg.crop)
+            dump("pano", pano=pano, valid=valid)
         metrics = {
             "n_images": n,
             "focal": float(cams.focal[0]),
@@ -1180,6 +1218,7 @@ class Stitcher:
             "reachable": reachable.tolist(),
         }
         metrics.update(timer.summary())
+        metrics.update(timer.counts())
         return np.clip(pano, 0, 255).astype(np.uint8), metrics
 
 

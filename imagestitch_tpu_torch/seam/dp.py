@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from imagestitch_tpu_torch.ops.image import rgb_to_gray, sobel
+from imagestitch_tpu_torch.utils import log
 
 BIG = 1e9
 _CHUNK = 8
@@ -45,7 +46,8 @@ def _shift_big(x: torch.Tensor, s: int) -> torch.Tensor:
 def dp_seam_path(cost: torch.Tensor) -> torch.Tensor:
     """Min-cost top-to-bottom path through (H, W) costs; rows with no
     overlap (all BIG) are free. Returns the seam column per row, (H,)
-    int64 on the cost's device."""
+    int64 on the cost's device. The choices read back for the backtrack
+    add their bytes to the active timer's `readback_bytes`."""
     H, W = cost.shape
     row_has = (cost < BIG).any(dim=1)
     e = torch.where(row_has[:, None], cost, torch.zeros_like(cost))
@@ -68,6 +70,7 @@ def dp_seam_path(cost: torch.Tensor) -> torch.Tensor:
         return torch.argmin(e[0]).reshape(1)
     last = int(torch.argmin(m))
     ch = torch.stack(choices).cpu().numpy()
+    log.count("readback_bytes", ch.nbytes)
     cols = np.empty(ch.shape[0] + 1, np.int64)
     col = last
     for r in range(ch.shape[0] - 1, -1, -1):

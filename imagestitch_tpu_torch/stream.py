@@ -28,7 +28,7 @@ from imagestitch_tpu_torch.config import PipelineConfig
 from imagestitch_tpu_torch.pipeline import (
     _apply_exposure, _blend_resolved, _crop_valid, _generator,
     _host_seam_masks, _needs_host_seam, _normalize_scans, _pano_canvas_shape,
-    _seam_pair, register_views, resolve_device, set_full_precision,
+    _read_back, _seam_pair, register_views, resolve_device, set_full_precision,
     warp_inputs, warp_scale, warp_views)
 from imagestitch_tpu_torch.utils.log import StageTimer
 
@@ -57,54 +57,55 @@ class StreamStitcher:
         """Register one frame set of N same-size (H, W, 3) uint8 views and
         freeze the registration. `draws`: optional mapping (i, j) ->
         (u_first, u_refit) RANSAC draws per matched pair. Returns the
-        calibration pano (uint8) and metrics."""
+        calibration pano (uint8) and metrics, which hold the counters
+        (`lm_iters`, `readback_bytes`) beside `stages_ms`."""
         cfg = self.cfg
         dev = self.device
         set_full_precision()
         timer = StageTimer(dev)
-        imgs = self._upload(images)
-        n, H, W = imgs.shape[:3]
-        cams, _, reachable, conf = register_views(
-            imgs, cfg, timer, draws, _generator(dev, seed))
+        with timer.active():
+            imgs = self._upload(images)
+            n, H, W = imgs.shape[:3]
+            cams, _, reachable, conf = register_views(
+                imgs, cfg, draws, _generator(dev, seed))
 
-        with timer.stage("warp"):
-            scale = warp_scale(cams)
-            canvas_hw = _pano_canvas_shape((H, W), n, cfg)
-            k_rinvs, corner, roi_uvs, _ = warp_inputs(
-                cams, scale, (H, W), n, canvas_hw, cfg)
-            self._frozen = dict(cams=cams, k_rinvs=k_rinvs, scale=scale,
-                                corners=corner.expand(n, 2),
-                                roi_uvs=roi_uvs, canvas_hw=canvas_hw)
-            warped, masks = self._warp(imgs)
-            # the views outside the largest match component sit at R = I:
-            # the frozen seam masks leave them out of every compose too
-            masks = masks & torch.as_tensor(reachable, device=dev)[
-                :, None, None]
-        with timer.stage("exposure"):
-            warped = _apply_exposure(warped, masks, cfg)
-        with timer.stage("seam"):
-            if _needs_host_seam(cfg):
-                sm = torch.as_tensor(_host_seam_masks(
-                    warped.cpu().numpy(), masks.cpu().numpy(), cfg),
-                    device=dev)
-            else:
-                sm = [masks[i] for i in range(n)]
-                if cfg.seam.kind != "none":
-                    for i in range(n - 1):
-                        sm[i], sm[i + 1] = _seam_pair(
-                            warped[i], warped[i + 1], sm[i], sm[i + 1],
-                            cfg)
-                sm = torch.stack(sm)
-            self._frozen["seam_masks"] = sm
-        with timer.stage("blend"):
-            pano, valid = _blend_resolved(warped, self._frozen["seam_masks"],
-                                          masks, cfg)
-        with timer.stage("readback_crop"):
-            pano, _ = _crop_valid(pano.cpu().numpy(), valid.cpu().numpy())
+            with timer.stage("warp"):
+                scale = warp_scale(cams)
+                canvas_hw = _pano_canvas_shape((H, W), n, cfg)
+                k_rinvs, corner, roi_uvs, _ = warp_inputs(
+                    cams, scale, (H, W), n, canvas_hw, cfg)
+                self._frozen = dict(cams=cams, k_rinvs=k_rinvs, scale=scale,
+                                    corners=corner.expand(n, 2),
+                                    roi_uvs=roi_uvs, canvas_hw=canvas_hw)
+                warped, masks = self._warp(imgs)
+                # the views outside the largest match component sit at R = I:
+                # the frozen seam masks leave them out of every compose too
+                masks = masks & torch.as_tensor(reachable, device=dev)[
+                    :, None, None]
+            with timer.stage("exposure"):
+                warped = _apply_exposure(warped, masks, cfg)
+            with timer.stage("seam"):
+                if _needs_host_seam(cfg):
+                    sm = torch.as_tensor(_host_seam_masks(
+                        *_read_back(warped, masks), cfg), device=dev)
+                else:
+                    sm = [masks[i] for i in range(n)]
+                    if cfg.seam.kind != "none":
+                        for i in range(n - 1):
+                            sm[i], sm[i + 1] = _seam_pair(
+                                warped[i], warped[i + 1], sm[i], sm[i + 1],
+                                cfg)
+                    sm = torch.stack(sm)
+                self._frozen["seam_masks"] = sm
+            with timer.stage("blend"):
+                pano, valid = _blend_resolved(
+                    warped, self._frozen["seam_masks"], masks, cfg)
+            with timer.stage("readback_crop"):
+                pano, _ = _crop_valid(*_read_back(pano, valid))
         self.stages_ms = timer.summary()
         metrics = {"n_images": n, "pair_confidences": conf.tolist(),
                    "focal": float(cams.focal[0]),
-                   "reachable": reachable.tolist()}
+                   "reachable": reachable.tolist(), **timer.counts()}
         return np.clip(pano, 0, 255).astype(np.uint8), metrics
 
     def frozen(self, name: str):

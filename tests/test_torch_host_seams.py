@@ -16,7 +16,8 @@ with the JAX RANSAC draws injected.
   edge given as (1, 0), `_host_seam_masks` takes the full-canvas
   marginals in (masks[0], masks[1]) order, as JAX does: masks equal to
   JAX's, and a partition of the overlap.
-- What crosses the bus: N-view graph cuts read back the uint8-quantized
+- What crosses the bus, as the split's active `StageTimer` counts it
+  (`readback_bytes`): N-view graph cuts read back the uint8-quantized
   canvases (1 byte a channel), the full DP the float32 ones (4 bytes).
 - Entry points against JAX with the same draws: `stitch_pair` (graph
   cut and full DP; its "front" and "host_seam_blend" stages),
@@ -55,6 +56,7 @@ from imagestitch_tpu.utils import io as jio  # noqa: E402
 import imagestitch_tpu_torch as tist  # noqa: E402
 from imagestitch_tpu_torch import pipeline as tpipe  # noqa: E402
 from imagestitch_tpu_torch.convert import config_from_dict  # noqa: E402
+from imagestitch_tpu_torch.utils.log import StageTimer  # noqa: E402
 from imagestitch_tpu_torch.utils.io import synthetic_rotation_pair  # noqa
 
 from test_torch_chain import (CHAIN_CFG, chain_draws, pair_draws,  # noqa
@@ -122,14 +124,14 @@ def splits(pair):
         cfg = PAIR_CFG.replace(seam=seam)
         pj, vj, sj = jpipe._host_seam_blend(pair["warped"], pair["masks"],
                                             cfg)
-        timings = {}
-        pt, vt, st = tpipe._host_seam_blend(
-            torch.tensor(np.asarray(pair["warped"])),
-            torch.tensor(np.asarray(pair["masks"])), _tcfg(cfg),
-            timings=timings)
+        timer = StageTimer("cpu")
+        with timer.active():
+            pt, vt, st = tpipe._host_seam_blend(
+                torch.tensor(np.asarray(pair["warped"])),
+                torch.tensor(np.asarray(pair["masks"])), _tcfg(cfg))
         out[name] = dict(j=(_np(pj), _np(vj), _np(sj)),
                          t=(pt.numpy(), vt.numpy(), _np(st)),
-                         timings=timings)
+                         stages=timer.summary(), counts=timer.counts())
     return out
 
 
@@ -140,14 +142,13 @@ def test_host_seam_split_equals_jax(splits, name):
     assert st.shape == sj.shape and np.array_equal(st, sj)
     assert np.array_equal(vt, vj)
     assert np.abs(pt - pj).max() <= 1e-3
-    t = splits[name]["timings"]
-    assert set(t) == {"readback_ms", "seam_ms", "blend_ms",
-                      "readback_bytes"}
+    assert set(splits[name]["stages"]) == {"seam_readback", "seam", "blend"}
+    assert set(splits[name]["counts"]) == {"readback_bytes"}
 
 
 def test_fullres_graphcut_pair_reads_back_the_uint8_crop(pair, splits):
     n, Hc, Wc = np.asarray(pair["masks"]).shape
-    crop = splits["graphcut"]["timings"]["readback_bytes"][0]
+    crop = splits["graphcut"]["counts"]["readback_bytes"]
     assert crop < n * Hc * Wc * 4          # a crop, 1 byte per value
     assert crop % (n * 4) == 0             # 3 channels + the mask
 
@@ -159,10 +160,11 @@ def test_n_view_readback_quantizes_for_the_graph_cut(pair):
     m3 = torch.cat([masks, torch.zeros_like(masks[:1])])
     n, Hc, Wc = m3.shape
     for seam, per_px in (("graphcut", 3 + 1), ("dp_full", 12 + 1)):
-        t = {}
-        tpipe._host_seam_blend(w3, m3, _tcfg(PAIR_CFG.replace(
-            seam=SEAMS[seam])), timings=t)
-        assert t["readback_bytes"] == [n * Hc * Wc * per_px]
+        t = StageTimer("cpu")
+        with t.active():
+            tpipe._host_seam_blend(w3, m3, _tcfg(PAIR_CFG.replace(
+                seam=SEAMS[seam])))
+        assert t.counts() == {"readback_bytes": n * Hc * Wc * per_px}
 
 
 @pytest.mark.parametrize("seam", ["graphcut", "graphcut_colorgrad"])
