@@ -3211,6 +3211,98 @@ def _stage_ranges(img1, img2):
     return ranges
 
 
+def _lm_case(shape):
+    """The ray adjustment's inputs at a cell's shape on the card: "pair" (2
+    cameras, 1 pair of 512 matches), "chain" (4 cameras, 3 consecutive and
+    2 skip pairs of 512, a fifth of the points outside the inliers).
+    Returns (cameras, x0, (src, dst, pt_valid, pair_from, pair_to,
+    pair_valid))."""
+    import torch
+    from imagestitch_tpu_torch.geometry import bundle
+    from imagestitch_tpu_torch.testing import bundle_problem
+    if shape == "pair":
+        cams, *pts = bundle_problem(2, [(0, 1)], 512, seed=11)
+    else:
+        cams, *pts = bundle_problem(
+            4, [(0, 1), (1, 2), (2, 3), (0, 2), (1, 3)], 512, seed=12,
+            masked=0.2)
+    cams = cams.replace(**{f: getattr(cams, f).to("cuda") for f in
+                           ("focal", "aspect", "ppx", "ppy", "R", "t")})
+    x0 = torch.cat([cams.focal[:, None], bundle.R_to_rodrigues(cams.R)],
+                   dim=1).reshape(-1)
+    return cams, x0, [t.to("cuda") for t in pts]
+
+
+def phase_lm_bundle(state):
+    """The LM kernel (csrc/lm_bundle.cu) at the pair's and the chain's
+    shapes of the ray adjustment, 25 iterations at most: against the plain
+    loop on the same card inputs (final error within 1e-4, focals within
+    1e-4 relative, re-anchored rotations within 1e-5; iterations of each);
+    then the plain loop's wall per adjustment (median of 5, synchronized),
+    the wrapper's wall (launch and the one readback, median of 20) and,
+    last, the kernel alone from torch.profiler kernel events (median of
+    20, warm: its inputs are 40 KB)."""
+    import statistics
+    from imagestitch_tpu_torch.geometry import bundle
+    from imagestitch_tpu_torch.ops import cuda_lm
+    from imagestitch_tpu_torch.utils import log
+    from imagestitch_tpu_torch.utils.timing import kernel_split_ms
+    import torch
+    out = {}
+    calls = {}
+    for shape in ("pair", "chain"):
+        cams, x0, (src, dst, ptv, pf, pt, pv) = _lm_case(shape)
+        res = bundle._ray_residuals(src, dst, ptv, pf, pt, pv, cams.ppx,
+                                    cams.ppy)
+
+        def plain():
+            timer = log.StageTimer(sync=False)
+            with timer.active():
+                x = bundle._lm_minimize(res, x0, 25)
+            return x, timer.counts()["lm_iters"]
+
+        def kernel(args=(x0, src, dst, ptv, pv, pf, pt, cams.ppx,
+                         cams.ppy)):
+            return cuda_lm.lm_minimize("ray", *args, 25)
+
+        xp, itp = plain()
+        xk, itk, ek = kernel()
+        r = res(xp)
+        ep = float((r * r).sum())
+        p4, k4 = xp.reshape(-1, 4).double(), xk.reshape(-1, 4).double()
+        Rp = bundle.rodrigues_to_R(p4[:, 1:].float()).double()
+        Rk = bundle.rodrigues_to_R(k4[:, 1:].float()).double()
+        f_rel = float(((k4[:, 0] - p4[:, 0]).abs() / p4[:, 0]).max())
+        R_abs = float((Rk[0].T @ Rk - Rp[0].T @ Rp).abs().max())
+        check(abs(ek - ep) <= 1e-4 * ep and f_rel <= 1e-4 and R_abs <= 1e-5,
+              f"LM kernel {shape}: error {ek} against {ep}, focal "
+              f"{f_rel}, rotation {R_abs}")
+        walls = {}
+        for name, fn, n in (("plain_ms", plain, 5), ("wrapper_ms", kernel,
+                                                     20)):
+            ts = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            walls[name] = statistics.median(ts)
+        out[shape] = dict(iters_kernel=itk, iters_plain=itp, error=ek,
+                          error_plain=ep, focal_rel=f_rel, rot_abs=R_abs,
+                          **walls)
+        calls[shape] = kernel
+    for shape, fn in calls.items():
+        split = kernel_split_ms(fn, N_TIMED, ("lm_kernel",))
+        check(split["kernels"] == 1,
+              f"{split['kernels']} LM kernels per adjustment")
+        out[shape]["kernel_ms"] = split["ms"]
+        out[shape]["kernel_ms_per_iter"] = \
+            split["ms"] / out[shape]["iters_kernel"]
+    emit({"phase": "lm_bundle", **out, "card": state["name"],
+          "smi": state["smi"]})
+
+
 def phase_stages(state):
     """Stage breakdowns of the 1080p ORB rotation stitch (default config)
     and of the 1080p SIFT plane stitch (bench.py's SIFT configuration),
@@ -3257,6 +3349,7 @@ def main(only=()) -> int:
               ("cli", phase_cli), ("api_path", phase_api_path),
               ("serve_path", phase_serve_path),
               ("warm_start", phase_warm_start),
+              ("lm_bundle", phase_lm_bundle),
               ("stages", phase_stages), ("kernel_times", phase_kernel_times)]
     unknown = set(only) - {name for name, _ in phases}
     if unknown:

@@ -4,10 +4,17 @@ BundleAdjusterRay: per-camera focal and Rodrigues rotation) and the
 reprojection adjuster (OpenCV's BundleAdjusterReproj: focal, ppx, ppy,
 aspect and rotation), both refined by Levenberg–Marquardt over all inlier
 correspondences with the same damping schedule and stopping rule as the
-JAX package (the Jacobian from forward-mode autodiff); OpenCV's
-waveCorrect; and SCANS mode's joint affine adjustment
-(`bundle_adjust_affine`, one least-squares solve on the host in NumPy, as
-in the JAX package).
+JAX package; OpenCV's waveCorrect; and SCANS mode's joint affine
+adjustment (`bundle_adjust_affine`, one least-squares solve on the host in
+NumPy, as in the JAX package).
+
+The LM loop runs one of two ways, chosen by what the inputs are
+(`takes_kernel`): on a CUDA device, with at most `cuda_lm.MAX_PARAMS`
+parameters (32 ray or 18 reprojection cameras), the whole loop is one
+launch of the kernel of `csrc/lm_bundle.cu` (the Jacobian from
+forward-mode dual numbers inside it) and one readback; CPU tensors and
+larger problems take the plain loop `_lm_minimize` (the Jacobian from
+forward-mode autodiff, `torch.func.jacfwd`).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import numpy as np
 import torch
 from torch.func import jacfwd
 
+from imagestitch_tpu_torch.ops import cuda_lm
 from imagestitch_tpu_torch.types import CameraParams
 from imagestitch_tpu_torch.utils import log
 
@@ -74,13 +82,22 @@ def _rays(params: torch.Tensor, pts: torch.Tensor, ppx, ppy) -> torch.Tensor:
 _JACOBIAN_LOCK = threading.Lock()
 
 
+def takes_kernel(device: torch.device, n_params: int) -> bool:
+    """Whether an adjustment of `n_params` parameters on `device` runs
+    as one launch of the LM kernel (`ops/cuda_lm`): on a CUDA device, when
+    the kernel's shared-memory system holds the parameters."""
+    return device.type == "cuda" and cuda_lm.fits(n_params)
+
+
 def _lm_minimize(residuals, x0: torch.Tensor, iters: int) -> torch.Tensor:
-    """Levenberg–Marquardt on a dense residual vector: damped normal
-    equations, λ·0.5 on an accepted step and λ·4 on a rejected one; stops
-    when an accepted step improves the error by < 1e-6 relative or λ
-    exceeds 1e8. Each iteration (the Jacobian, the solve and the host's
-    read of the stopping test) is a stage `lm_step` of the active timer
-    and adds 1 to its counter `lm_iters`."""
+    """Levenberg–Marquardt on a dense residual vector, the plain loop
+    (CPU tensors, or more parameters than the kernel holds): damped normal
+    equations with the Jacobian from forward-mode autodiff (`jacfwd`),
+    λ·0.5 on an accepted step and λ·4 on a rejected one; stops when an
+    accepted step improves the error by < 1e-6 relative or λ exceeds 1e8.
+    Each iteration (the Jacobian, the solve and the host's read of the
+    stopping test) is a stage `lm_step` of the active timer and adds 1 to
+    its counter `lm_iters`."""
 
     def err_of(x):
         r = residuals(x)
@@ -117,6 +134,68 @@ def _lm_minimize(residuals, x0: torch.Tensor, iters: int) -> torch.Tensor:
     return x
 
 
+def _lm_kernel(kind: str, x0: torch.Tensor, src_pts, dst_pts, pt_valid,
+               pair_valid, pair_from, pair_to, iters: int, ppx=None,
+               ppy=None) -> torch.Tensor:
+    """The LM loop as one launch of the kernel (`cuda_lm.lm_minimize`) and
+    its one readback, a stage `lm_step` of the active timer; adds the
+    iterations the kernel ran to the counter `lm_iters` and 1 to
+    `lm_fused`."""
+    log.count("lm_fused")
+    with log.stage("lm_step"):
+        x, n_iters, _ = cuda_lm.lm_minimize(
+            kind, x0, src_pts, dst_pts, pt_valid, pair_valid, pair_from,
+            pair_to, ppx, ppy, iters)
+    log.count("lm_iters", n_iters)
+    return x
+
+
+def _ray_residuals(src_pts, dst_pts, pt_valid, pair_from, pair_to,
+                   pair_valid, ppx, ppy):
+    """The ray adjuster's residual function of x ((N·4,): focal, r3 per
+    camera): sqrt(f_i·f_j)·(ray_i − ray_j) per correspondence, masked."""
+    m = (pt_valid & pair_valid[:, None]).to(torch.float32)
+
+    def residuals(x):
+        p = x.reshape(-1, 4)
+        scale = torch.sqrt((p[pair_from, 0] * p[pair_to, 0]).abs())
+        rays_i = _rays(p[pair_from], src_pts, ppx[pair_from],
+                       ppy[pair_from])
+        rays_j = _rays(p[pair_to], dst_pts, ppx[pair_to], ppy[pair_to])
+        r = (rays_i - rays_j) * scale[:, None, None] * m[..., None]
+        return r.reshape(-1)
+
+    return residuals
+
+
+def _reproj_residuals(src_pts, dst_pts, pt_valid, pair_from, pair_to,
+                      pair_valid):
+    """The reprojection adjuster's residual function of x ((N·7,): focal,
+    ppx, ppy, aspect, r3 per camera): the transfer's pixel error per
+    correspondence, masked."""
+    m = (pt_valid & pair_valid[:, None]).to(torch.float32)
+
+    def residuals(x):
+        p = x.reshape(-1, 7)
+        pi, pj = p[pair_from], p[pair_to]
+        fi, pxi, pyi, ai = (pi[:, k, None] for k in range(4))
+        fj, pxj, pyj, aj = (pj[:, k, None] for k in range(4))
+        Ri = rodrigues_to_R(pi[:, 4:7])
+        Rj = rodrigues_to_R(pj[:, 4:7])
+        xx = (src_pts[..., 0] - pxi) / fi
+        yy = (src_pts[..., 1] - pyi) / (fi * ai)
+        d = torch.stack([xx, yy, torch.ones_like(xx)], dim=-1)
+        w = (d @ Ri.transpose(-1, -2)) @ Rj
+        z = torch.where(w[..., 2].abs() < 1e-8,
+                        torch.full_like(w[..., 2], 1e-8), w[..., 2])
+        u = fj * w[..., 0] / z + pxj
+        v = fj * aj * w[..., 1] / z + pyj
+        r = (torch.stack([u, v], dim=-1) - dst_pts) * m[..., None]
+        return r.reshape(-1)
+
+    return residuals
+
+
 def bundle_adjust_ray(cameras: CameraParams, src_pts: torch.Tensor,
                       dst_pts: torch.Tensor, pt_valid: torch.Tensor,
                       pair_from: torch.Tensor, pair_to: torch.Tensor,
@@ -131,18 +210,14 @@ def bundle_adjust_ray(cameras: CameraParams, src_pts: torch.Tensor,
     ppx, ppy = cameras.ppx, cameras.ppy
     pair_from = pair_from.long()
     pair_to = pair_to.long()
-    m = (pt_valid & pair_valid[:, None]).to(torch.float32)
-
-    def residuals(x):
-        p = x.reshape(N, 4)
-        scale = torch.sqrt((p[pair_from, 0] * p[pair_to, 0]).abs())
-        rays_i = _rays(p[pair_from], src_pts, ppx[pair_from],
-                       ppy[pair_from])
-        rays_j = _rays(p[pair_to], dst_pts, ppx[pair_to], ppy[pair_to])
-        r = (rays_i - rays_j) * scale[:, None, None] * m[..., None]
-        return r.reshape(-1)
-
-    pf = _lm_minimize(residuals, x0, iters).reshape(N, 4)
+    if takes_kernel(x0.device, x0.numel()):
+        pf = _lm_kernel("ray", x0, src_pts, dst_pts, pt_valid, pair_valid,
+                        pair_from, pair_to, iters, ppx, ppy)
+    else:
+        pf = _lm_minimize(_ray_residuals(src_pts, dst_pts, pt_valid,
+                                         pair_from, pair_to, pair_valid,
+                                         ppx, ppy), x0, iters)
+    pf = pf.reshape(N, 4)
     Rf = rodrigues_to_R(pf[:, 1:4])
     G = cameras.R[0] @ Rf[0].T
     return cameras.replace(focal=pf[:, 0].abs(), R=G @ Rf)
@@ -163,27 +238,14 @@ def bundle_adjust_reproj(cameras: CameraParams, src_pts: torch.Tensor,
                     R_to_rodrigues(cameras.R)], dim=1).reshape(-1)
     pair_from = pair_from.long()
     pair_to = pair_to.long()
-    m = (pt_valid & pair_valid[:, None]).to(torch.float32)
-
-    def residuals(x):
-        p = x.reshape(N, 7)
-        pi, pj = p[pair_from], p[pair_to]
-        fi, pxi, pyi, ai = (pi[:, k, None] for k in range(4))
-        fj, pxj, pyj, aj = (pj[:, k, None] for k in range(4))
-        Ri = rodrigues_to_R(pi[:, 4:7])
-        Rj = rodrigues_to_R(pj[:, 4:7])
-        xx = (src_pts[..., 0] - pxi) / fi
-        yy = (src_pts[..., 1] - pyi) / (fi * ai)
-        d = torch.stack([xx, yy, torch.ones_like(xx)], dim=-1)
-        w = (d @ Ri.transpose(-1, -2)) @ Rj
-        z = torch.where(w[..., 2].abs() < 1e-8,
-                        torch.full_like(w[..., 2], 1e-8), w[..., 2])
-        u = fj * w[..., 0] / z + pxj
-        v = fj * aj * w[..., 1] / z + pyj
-        r = (torch.stack([u, v], dim=-1) - dst_pts) * m[..., None]
-        return r.reshape(-1)
-
-    pf = _lm_minimize(residuals, x0, iters).reshape(N, 7)
+    if takes_kernel(x0.device, x0.numel()):
+        pf = _lm_kernel("reproj", x0, src_pts, dst_pts, pt_valid,
+                        pair_valid, pair_from, pair_to, iters)
+    else:
+        pf = _lm_minimize(_reproj_residuals(src_pts, dst_pts, pt_valid,
+                                            pair_from, pair_to, pair_valid),
+                          x0, iters)
+    pf = pf.reshape(N, 7)
     Rf = rodrigues_to_R(pf[:, 4:7])
     G = cameras.R[0] @ Rf[0].T
     return cameras.replace(focal=pf[:, 0].abs(), ppx=pf[:, 1],

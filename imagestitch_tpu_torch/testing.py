@@ -6,8 +6,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from imagestitch_tpu_torch.types import CameraParams
 from imagestitch_tpu_torch.warp.projectors import PROJECTORS
 from imagestitch_tpu_torch.warp.warper import image_scale
 
@@ -66,3 +68,71 @@ def near_validity_boundary(k_rinvs: torch.Tensor, scale, corners,
                              (ys - (h - 1)).abs()]).amin(0)
         out.append((d < tol) | (pz.abs() < 1e-6))
     return torch.stack(out)
+
+
+def _rotation(axis_angle) -> np.ndarray:
+    """float64 rotation matrix of an axis-angle vector (Rodrigues)."""
+    r = np.asarray(axis_angle, np.float64)
+    theta = float(np.linalg.norm(r))
+    if theta < 1e-12:
+        return np.eye(3)
+    k = r / theta
+    K = np.array([[0.0, -k[2], k[1]], [k[2], 0.0, -k[0]],
+                  [-k[1], k[0], 0.0]])
+    return np.eye(3) + math.sin(theta) * K + (1 - math.cos(theta)) * K @ K
+
+
+def bundle_problem(n_cams: int, pairs, T: int = 512, seed: int = 0,
+                   masked: float = 0.0, invalid_pairs=(),
+                   focal: float = 1728.0, size=(1080, 1920),
+                   yaw_step_deg: float = 15.0, noise_px: float = 0.5):
+    """A bundle adjustment's inputs, made with numpy from `seed`: `n_cams`
+    cameras of one (h, w) `size` panning by `yaw_step_deg` (with a little
+    pitch and roll), true focal `focal`; for each (i, j) of `pairs`, T
+    correspondences of scene directions both views see, the second
+    view's points with `noise_px` of Gaussian noise; the initial cameras
+    off the truth by up to 3% in focal and about 0.5 deg in rotation.
+    `masked`: the share of points marked invalid; `invalid_pairs`: the
+    indices of pairs marked invalid. Returns the arguments of
+    `geometry.bundle.bundle_adjust` before `iters`: (CameraParams, src
+    (P, T, 2), dst, pt_valid (P, T), pair_from (P,), pair_to, pair_valid
+    (P,)), CPU tensors."""
+    rng = np.random.default_rng(seed)
+    h, w = size
+    Kt = np.array([[focal, 0.0, w / 2], [0.0, focal, h / 2], [0, 0, 1.0]])
+    Rt = [_rotation([0.0, math.radians(yaw_step_deg * i), 0.0])
+          @ _rotation(rng.normal(0.0, 0.01, 3)) for i in range(n_cams)]
+    P = len(pairs)
+    src = np.zeros((P, T, 2))
+    dst = np.zeros((P, T, 2))
+    for p, (i, j) in enumerate(pairs):
+        got = 0
+        while got < T:
+            px = rng.uniform([0, 0], [w - 1, h - 1], (4 * T, 2))
+            d = np.linalg.solve(Kt, np.c_[px, np.ones(len(px))].T)
+            q = Kt @ Rt[j].T @ Rt[i] @ d
+            ok = q[2] > 0
+            q = (q[:2] / np.where(ok, q[2], 1.0)).T
+            ok &= (q[:, 0] >= 0) & (q[:, 0] <= w - 1) & (q[:, 1] >= 0) \
+                & (q[:, 1] <= h - 1)
+            take = min(T - got, int(ok.sum()))
+            src[p, got:got + take] = px[ok][:take]
+            dst[p, got:got + take] = q[ok][:take]
+            got += take
+    dst += rng.normal(0.0, noise_px, dst.shape)
+    pt_valid = rng.uniform(size=(P, T)) >= masked
+    pair_valid = np.ones(P, bool)
+    pair_valid[list(invalid_pairs)] = False
+    f0 = focal * (1 + rng.uniform(-0.03, 0.03, n_cams))
+    R0 = np.stack([R @ _rotation(rng.normal(0.0, math.radians(0.3), 3))
+                   for R in Rt])
+    cams = CameraParams(
+        focal=torch.tensor(f0, dtype=torch.float32),
+        aspect=torch.ones(n_cams), ppx=torch.full((n_cams,), w / 2),
+        ppy=torch.full((n_cams,), h / 2),
+        R=torch.tensor(R0, dtype=torch.float32), t=torch.zeros(n_cams, 3))
+    idx = torch.tensor(pairs, dtype=torch.int64).reshape(P, 2)
+    return (cams, torch.tensor(src, dtype=torch.float32),
+            torch.tensor(dst, dtype=torch.float32),
+            torch.from_numpy(pt_valid), idx[:, 0].clone(),
+            idx[:, 1].clone(), torch.from_numpy(pair_valid))

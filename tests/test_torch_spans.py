@@ -170,6 +170,15 @@ def test_entry_metrics_hold_every_stage_and_counter(runs, case):
     assert 1 <= m["lm_iters"] <= BA_ITERS
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_cpu_entries_take_the_plain_loop(runs, case):
+    """On the CPU every adjustment is the plain loop (`_lm_minimize`, whose
+    residual calls the spy counts): no `lm_fused` count."""
+    assert "lm_fused" not in runs[case]["m"]
+    assert "lm_fused" not in runs[case]["m_p"]
+    assert all(c > 1 for c in runs[case]["spies"].residual_calls)
+
+
 def _canvas_bytes(case):
     """A float32 (Hc, Wc, 3) canvas and its bool mask."""
     kind, cfg = CASES[case]
