@@ -7,6 +7,14 @@ subpixel refinement with the interpolated-contrast test, up to two
 orientations per keypoint from a 36-bin histogram, and the 4x4x8
 descriptor over a rotated, scale-sized 17x17 sample grid.
 
+Spans and a counter on the active timer (`utils/log`; nothing without
+one): each octave opens `sift_maps` (the octave-maps launch, the next
+octave's resize, the block top-k), `sift_refine` (the subpixel refinement
+and the contrast test), `sift_orient` (the orientation histograms and
+peaks) and `sift_describe` (the descriptor call and the per-peak
+assembly); the counter `sift_kpts` adds the valid keypoints the image
+keeps, read back only while a timer is active.
+
 Every top-k breaks ties by ascending index, the order `lax.top_k` gives;
 `torch.round` rounds half to even like `jnp.round`. The histogram and
 descriptor contractions are batched products like the JAX package's
@@ -26,6 +34,7 @@ from imagestitch_tpu_torch.features.orb import _pad_or_trim, top_k_stable
 from imagestitch_tpu_torch.ops.cuda_sift import octave_shapes, sift_octave_maps
 from imagestitch_tpu_torch.ops.image import resize
 from imagestitch_tpu_torch.types import ImageFeatures
+from imagestitch_tpu_torch.utils import log
 
 BLOCK_H, BLOCK_W = 8, 16
 
@@ -304,47 +313,51 @@ def detect_and_compute_sift(gray: torch.Tensor,
 
     base = gray
     for o, (Hh, Wh) in enumerate(shapes):
-        dog, score, gx_stack, gy_stack, gS = sift_octave_maps(
-            base, o == 0, S, sigma0, contrast_thresh)
-        if o + 1 < len(shapes):
-            base = resize(gS, shapes[o + 1], "linear")
-        top_s, top_i = topk_block_candidates(score, quota)
-        v = top_s > 0
-        li = top_i // (Hh * Wh) + 1      # interior layer -> DoG layer
-        rem = top_i % (Hh * Wh)
-        yk = rem // Wh
-        xk = rem % Wh
+        with log.stage("sift_maps"):
+            dog, score, gx_stack, gy_stack, gS = sift_octave_maps(
+                base, o == 0, S, sigma0, contrast_thresh)
+            if o + 1 < len(shapes):
+                base = resize(gS, shapes[o + 1], "linear")
+            top_s, top_i = topk_block_candidates(score, quota)
+            v = top_s > 0
+            li = top_i // (Hh * Wh) + 1      # interior layer -> DoG layer
+            rem = top_i % (Hh * Wh)
+            yk = rem // Wh
+            xk = rem % Wh
 
-        li_r, yf, xf, ol, c_ok = refine_subpixel(
-            dog, li, yk, xk, contrast_thresh)
-        v = v & c_ok
-        yk_i = torch.round(yf).to(torch.int64).clamp(0, Hh - 1)
-        xk_i = torch.round(xf).to(torch.int64).clamp(0, Wh - 1)
+        with log.stage("sift_refine"):
+            li_r, yf, xf, ol, c_ok = refine_subpixel(
+                dog, li, yk, xk, contrast_thresh)
+            v = v & c_ok
+            yk_i = torch.round(yf).to(torch.int64).clamp(0, Hh - 1)
+            xk_i = torch.round(xf).to(torch.int64).clamp(0, Wh - 1)
 
-        si = (li_r - 1).clamp(0, S)                       # gradient level
-        lf = li_r.to(torch.float32) + ol                  # interpolated scale
-        sigma_rel = sigma0 * (2.0 ** (lf.clamp(0.0, S + 1.0) / S))
+            si = (li_r - 1).clamp(0, S)                   # gradient level
+            lf = li_r.to(torch.float32) + ol              # interpolated scale
+            sigma_rel = sigma0 * (2.0 ** (lf.clamp(0.0, S + 1.0) / S))
 
-        thetas, peak_ok = orientations(gx_stack, gy_stack, si, yk_i, xk_i,
-                                       sigma_rel)
+        with log.stage("sift_orient"):
+            thetas, peak_ok = orientations(gx_stack, gy_stack, si, yk_i,
+                                           xk_i, sigma_rel)
         s = float(2 ** o)
-        # one descriptor call for every peak: row p*quota+k is peak p of
-        # keypoint k
-        npk = thetas.shape[0]
-        d_all = descriptors(gx_stack, gy_stack, si.repeat(npk),
-                            yk_i.repeat(npk), xk_i.repeat(npk),
-                            thetas.reshape(-1), sigma_rel.repeat(npk))
-        for p in range(npk):
-            vp = v & peak_ok[p]
-            xs.append(xf * s)
-            ys.append(yf * s)
-            resp.append(torch.where(vp, top_s, torch.zeros_like(top_s)))
-            angs.append(thetas[p])
-            sizes.append(sigma_rel * s * 2.0)
-            levels.append(torch.full((quota,), o, dtype=torch.int32,
-                                     device=dev))
-            valids.append(vp)
-            descs.append(d_all[p * quota:(p + 1) * quota])
+        with log.stage("sift_describe"):
+            # one descriptor call for every peak: row p*quota+k is peak p
+            # of keypoint k
+            npk = thetas.shape[0]
+            d_all = descriptors(gx_stack, gy_stack, si.repeat(npk),
+                                yk_i.repeat(npk), xk_i.repeat(npk),
+                                thetas.reshape(-1), sigma_rel.repeat(npk))
+            for p in range(npk):
+                vp = v & peak_ok[p]
+                xs.append(xf * s)
+                ys.append(yf * s)
+                resp.append(torch.where(vp, top_s, torch.zeros_like(top_s)))
+                angs.append(thetas[p])
+                sizes.append(sigma_rel * s * 2.0)
+                levels.append(torch.full((quota,), o, dtype=torch.int32,
+                                         device=dev))
+                valids.append(vp)
+                descs.append(d_all[p * quota:(p + 1) * quota])
 
     feats = ImageFeatures(
         xy=torch.stack([torch.cat(xs), torch.cat(ys)], dim=1),
@@ -356,4 +369,7 @@ def detect_and_compute_sift(gray: torch.Tensor,
         descriptors=torch.cat(descs, dim=0),
         img_size=torch.tensor([H, W], dtype=torch.int32, device=dev),
     )
-    return _pad_or_trim(feats, cfg.max_keypoints)
+    feats = _pad_or_trim(feats, cfg.max_keypoints)
+    # the count is read back only where a timer is active (`log.count`)
+    log.count("sift_kpts", feats.num_valid())
+    return feats

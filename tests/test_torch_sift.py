@@ -308,10 +308,12 @@ def test_sift_host_stitch_pair_matches_jax(stitch_runs):
     pj, mj = stitch_runs["host_j"]
     pt, mt = stitch_runs["host_t"]
     # the JAX entry's keys, and the stages inside the port's and their
-    # counters (tests/test_torch_spans.py)
+    # counters (tests/test_torch_spans.py), the SIFT detector's among them
+    # (tests/test_torch_sift_plane.py)
     inside = {"detect", "match", "cameras", "bundle_adjust", "lm_step",
               "warp", "exposure", "seam_blend", "readback_crop",
-              "lm_iters", "readback_bytes"}
+              "lm_iters", "readback_bytes", "sift_maps", "sift_refine",
+              "sift_orient", "sift_describe", "sift_kpts"}
     assert sorted(mt) == sorted({*mj, *inside})
     assert pt.shape == pj.shape and pt.dtype == np.uint8
     assert mt["h_valid"] and mt["kpts1"] == mj["kpts1"]
