@@ -211,6 +211,15 @@ result line is printed):
                 tools/warm_start_probe.py in two fresh processes: the JAX
                 probe's keys, was_cached and h_valid true, pano_sum equal
                 to the in-process call's, each process's wall.
+    lm_bundle — the LM kernel against the plain loop at the pair's and
+                the chain's shapes of the ray adjustment, then both timed.
+    dp_seam   — the DP seam kernel on the costs a 1080p rotation pair's
+                stitch hands it under the ORB pair cell's and the SIFT
+                cell's configurations: one launch, the seam columns equal
+                to the plain loop's bit for bit; the stitches' seam_blend
+                and seam_dp stages with the kernel and with the plain loop
+                forced; the plain loop's and the wrapper's wall; the
+                kernel alone, L2 flushed and warm.
 33. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
                 of the 1080p SIFT plane stitch, and the device's busy share
                 of one stitch of each (torch.profiler, after the timing);
@@ -229,9 +238,10 @@ result line is printed):
                 and warm, beside its bound and F.grid_sample. Last, since
                 once the profiler has traced the card, later launches cost
                 the host more.
-35. kernels   — one line {"kernels": [...]}: launches on the main path
-                (`launches`) and on each path (`launches_by_path`, counted
-                over the path's run), error against the plain version,
+35. kernels   — one line {"kernels": [...]}, K1-K4, then the LM and the DP
+                seam kernels: launches on the main path (`launches`) and
+                on each path (`launches_by_path`, counted from 0 over the
+                path's run), error against the plain version,
                 kernel / plain / library ms and the least time the card
                 could take (bound_ms).
 
@@ -760,7 +770,7 @@ def phase_dma_layouts(state):
     launches = _read_counts()
     want = {"detect_maps": 0, "sift_octave_maps": 0, "warp_batched": 0,
             "slab_probe": len(rows) * (3 + 2 * reps)}
-    check(launches == want, f"kernel launches {launches}, want {want}")
+    check(_matches(launches, want), f"kernel launches {launches}, want {want}")
 
     ceiling = {h: tool.ceilings(planar, int(tool.slab_gb(h) * 1e9), reps)
                for h in tool.HS}
@@ -845,26 +855,33 @@ def phase_sift_reference(state):
                  PipelineConfig(detector=DetectorConfig(kind="sift")))
 
 
+def _wrappers():
+    from imagestitch_tpu_torch.ops import (cuda_detect, cuda_dp, cuda_lm,
+                                           cuda_sift, cuda_slab_probe,
+                                           cuda_warp)
+    return {"detect_maps": cuda_detect, "sift_octave_maps": cuda_sift,
+            "warp_batched": cuda_warp, "slab_probe": cuda_slab_probe,
+            "lm_bundle": cuda_lm, "dp_seam": cuda_dp}
+
+
 def _reset_counts():
-    from imagestitch_tpu_torch.ops import (cuda_detect, cuda_sift,
-                                           cuda_slab_probe, cuda_warp)
-    cuda_detect.launch_count = 0
-    cuda_sift.launch_count = 0
-    cuda_warp.launch_count = 0
-    cuda_slab_probe.launch_count = 0
+    for mod in _wrappers().values():
+        mod.launch_count = 0
 
 
 def _read_counts():
-    from imagestitch_tpu_torch.ops import (cuda_detect, cuda_sift,
-                                           cuda_slab_probe, cuda_warp)
-    return {"detect_maps": cuda_detect.launch_count,
-            "sift_octave_maps": cuda_sift.launch_count,
-            "warp_batched": cuda_warp.launch_count,
-            "slab_probe": cuda_slab_probe.launch_count}
+    return {name: mod.launch_count for name, mod in _wrappers().items()}
+
+
+def _matches(launches, want):
+    """Whether the launches of the kernels `want` names are as it says
+    (the other kernels are only recorded)."""
+    return all(launches[name] == n for name, n in want.items())
 
 
 KERNEL_KEYS = {"k1": "detect_maps", "k2": "warp_batched",
-               "k3": "sift_octave_maps", "k4": "slab_probe"}
+               "k3": "sift_octave_maps", "k4": "slab_probe",
+               "lm": "lm_bundle", "dp": "dp_seam"}
 
 
 def _record_path(state, path, launches):
@@ -903,11 +920,13 @@ def phase_main_path(state):
     launches = _read_counts()
     want = {"detect_maps": 2 * len(pairs), "sift_octave_maps": 0,
             "warp_batched": len(pairs), "slab_probe": 0}
-    check(launches == want, f"kernel launches {launches}, want {want}")
+    check(_matches(launches, want), f"kernel launches {launches}, want {want}")
     state["k1"]["launches"] = launches["detect_maps"]
     state["k2"]["launches"] = launches["warp_batched"]
     state["k4"]["launches_stitching"] = launches["slab_probe"]
     _record_path(state, "main_path", launches)
+    state["lm"]["launches"] = launches["lm_bundle"]
+    state["dp"]["launches"] = launches["dp_seam"]
 
     summary = _check_pairs(results, f_true, shift)
     walls = _warm_walls(lambda: stitch_pair(img1, img2))
@@ -978,7 +997,7 @@ def phase_sift_path(state):
     k3_cuda = cuda_launches() - n0
     want = {"detect_maps": 0, "sift_octave_maps": 8 * len(runs),
             "warp_batched": len(runs), "slab_probe": 0}
-    check(launches == want, f"kernel launches {launches}, want {want}")
+    check(_matches(launches, want), f"kernel launches {launches}, want {want}")
     check(k3_cuda == K3_CUDA_LAUNCHES_PER_STITCH * len(runs),
           f"{k3_cuda} K3 CUDA launches in {len(runs)} stitches")
     state["k3"]["launches"] = launches["sift_octave_maps"]
@@ -1058,7 +1077,7 @@ def phase_chain_path(state):
     launches = _read_counts()
     want = {"detect_maps": len(seqs), "sift_octave_maps": 0,
             "warp_batched": len(seqs), "slab_probe": 0}
-    check(launches == want, f"kernel launches {launches}, want {want}")
+    check(_matches(launches, want), f"kernel launches {launches}, want {want}")
     _record_path(state, "chain_path", launches)
 
     summary = {}
@@ -1272,7 +1291,7 @@ def phase_stitcher_path(state):
     launches = _read_counts()
     want = {"detect_maps": len(runs), "sift_octave_maps": 0,
             "warp_batched": len(runs), "slab_probe": 0}
-    check(launches == want, f"kernel launches {launches}, want {want}")
+    check(_matches(launches, want), f"kernel launches {launches}, want {want}")
     _record_path(state, "stitcher_path", launches)
 
     extents = {"seq4_1080p": (1920 + 2 * shift4, 0),
@@ -1410,7 +1429,7 @@ def phase_multiband_path(state):
     launches = _read_counts()
     want = {"detect_maps": 2, "sift_octave_maps": 0, "warp_batched": 1,
             "slab_probe": 0}
-    check(launches == want, f"kernel launches {launches}, want {want}")
+    check(_matches(launches, want), f"kernel launches {launches}, want {want}")
     _record_path(state, "multiband_path", launches)
     check(m["h_valid"], "multiband: h_valid false")
     check(pano.dtype == np.uint8 and pano.std() > 20, "multiband: pano")
@@ -1455,7 +1474,7 @@ def phase_stream_path(state):
     cal_launches = _read_counts()
     want = {"detect_maps": 1, "sift_octave_maps": 0, "warp_batched": 1,
             "slab_probe": 0}
-    check(cal_launches == want, f"calibrate launches {cal_launches}, "
+    check(_matches(cal_launches, want), f"calibrate launches {cal_launches}, "
           f"want {want}")
     _record_path(state, "stream_calibrate", cal_launches)
     cal_stages = dict(ss.stages_ms)
@@ -1486,7 +1505,7 @@ def phase_stream_path(state):
     comp_launches = _read_counts()
     want = {"detect_maps": 0, "sift_octave_maps": 0,
             "warp_batched": STREAM_FRAMES, "slab_probe": 0}
-    check(comp_launches == want, f"{STREAM_FRAMES} composes launched "
+    check(_matches(comp_launches, want), f"{STREAM_FRAMES} composes launched "
           f"{comp_launches}, want {want}")
     _record_path(state, "stream_compose", comp_launches)
     split = {k: float(np.median([s[k] for s in splits])) for k in splits[0]}
@@ -1577,7 +1596,7 @@ def phase_batched_path(state):
     launches = _read_counts()
     want = {"detect_maps": len(bench), "sift_octave_maps": 0,
             "warp_batched": len(bench), "slab_probe": 0}
-    check(launches == want, f"kernel launches {launches}, want {want}")
+    check(_matches(launches, want), f"kernel launches {launches}, want {want}")
     _record_path(state, "batched", launches)
 
     summary = {}
@@ -1742,7 +1761,8 @@ def _option_pair(name, config, k2_launches, total, interior=False):
     _add_counts(total, launches)
     want = {"detect_maps": 2, "sift_octave_maps": 0,
             "warp_batched": k2_launches, "slab_probe": 0}
-    check(launches == want, f"{name}: launches {launches}, want {want}")
+    check(_matches(launches, want),
+          f"{name}: launches {launches}, want {want}")
     pp, mp = stitch_pair(img1, img2, config, device="cpu", draws=draws)
     check(mc["h_valid"] and mp["h_valid"], f"{name}: h_valid false")
     check((mc["kpts1"], mc["kpts2"]) == (mp["kpts1"], mp["kpts2"]),
@@ -1873,7 +1893,7 @@ def phase_detailed_path(state):
     launches = _read_counts()
     want = {"detect_maps": 1, "sift_octave_maps": 0, "warp_batched": 1,
             "slab_probe": 0}
-    check(launches == want, f"kernel launches {launches}, want {want}")
+    check(_matches(launches, want), f"kernel launches {launches}, want {want}")
     _record_path(state, "detailed_path", launches)
     check(m["reachable"] == [True] * 4, f"reachable {m['reachable']}")
     check(abs(m["focal"] - PAN_FOCAL) < 0.05 * PAN_FOCAL,
@@ -1959,7 +1979,7 @@ def phase_ramp_path(state):
     launches = _read_counts()
     want = {"detect_maps": 2 * len(runs), "sift_octave_maps": 0,
             "warp_batched": len(runs), "slab_probe": 0}
-    check(launches == want, f"kernel launches {launches}, want {want}")
+    check(_matches(launches, want), f"kernel launches {launches}, want {want}")
     _record_path(state, "ramp_path", launches)
     summary = _check_pairs(results, f_true, shift)
     walls = {name: _warm_walls(lambda a=a, b=b: stitch_pair(a, b, cfg))
@@ -2088,7 +2108,8 @@ def phase_graphcut_path(state):
         _add_counts(total, launches)
         want = {"detect_maps": 2, "sift_octave_maps": 0, "warp_batched": 1,
                 "slab_probe": 0}
-        check(launches == want, f"{name}: launches {launches}, want {want}")
+        check(_matches(launches, want),
+              f"{name}: launches {launches}, want {want}")
         check(m["h_valid"], f"{name}: h_valid false")
         check(pano.dtype == np.uint8 and pano.std() > 20, f"{name}: pano")
         check(abs(pano.shape[1] - (1920 + shift)) < 0.1 * (1920 + shift),
@@ -2222,7 +2243,7 @@ def phase_scans_path(state):
     launches = _read_counts()
     want = {"detect_maps": 2, "sift_octave_maps": 0, "warp_batched": 1,
             "slab_probe": 0}
-    check(launches == want, f"scans pair: launches {launches}")
+    check(_matches(launches, want), f"scans pair: launches {launches}")
     check(m["h_valid"] and m["focal"] == 1.0, f"scans pair: {m['h_valid']}")
     check(pano.dtype == np.uint8 and pano.std() > 20, "scans pair: pano")
     check(abs(pano.shape[1] - (1920 + shift)) < 0.1 * (1920 + shift),
@@ -2385,7 +2406,7 @@ def phase_pano_path(state):
     launches = _read_counts()
     want = {"detect_maps": 1, "sift_octave_maps": 0, "warp_batched": 1,
             "slab_probe": 0}
-    check(launches == want, f"kernel launches {launches}, want {want}")
+    check(_matches(launches, want), f"kernel launches {launches}, want {want}")
     _record_path(state, "pano_path", launches)
     check(bool(m["h_valid"].all() and m["reachable"].all()),
           f"h_valid {m['h_valid']}, reachable {m['reachable']}")
@@ -2580,7 +2601,7 @@ def phase_aot(state):
         launches = _read_counts()
         want = {"detect_maps": 2, "sift_octave_maps": 0, "warp_batched": 1,
                 "slab_probe": 0}
-        check(launches == want, f"program call: launches {launches}")
+        check(_matches(launches, want), f"program call: launches {launches}")
         _record_path(state, "aot", launches)
         _equal_outputs("stitch_pair_program", got,
                        stitch_pair_impl(a, b, draws=draws))
@@ -2633,7 +2654,8 @@ def phase_cli(state):
     launches = _read_counts()
     want = {"detect_maps": 2, "sift_octave_maps": 0, "warp_batched": 1,
             "slab_probe": 0}
-    check(rc == 0 and launches == want, f"cli rc {rc}, launches {launches}")
+    check(rc == 0 and _matches(launches, want),
+          f"cli rc {rc}, launches {launches}")
     _record_path(state, "cli", launches)
     img = imread(out)
     check(img.shape[1] > 1920 and img.std() > 20, f"cli pano {img.shape}")
@@ -2670,7 +2692,7 @@ def _run_example(state):
     launches = _read_counts()
     want = {"detect_maps": 2, "sift_octave_maps": 0, "warp_batched": 1,
             "slab_probe": 0}
-    check(rc == 0 and launches == want,
+    check(rc == 0 and _matches(launches, want),
           f"example rc {rc}, launches {launches}, want {want}")
     _record_path(state, "example", launches)
     img1, img2, _, focal_true = photo_rotation_pair()
@@ -2767,7 +2789,8 @@ def phase_api_path(state):
                                                   API_CANVAS, kind))
         want = {"detect_maps": 0, "sift_octave_maps": 0, "warp_batched": 1,
                 "slab_probe": 0}
-        check(launches == want, f"{kind}: launches {launches}, want {want}")
+        check(_matches(launches, want),
+              f"{kind}: launches {launches}, want {want}")
         rp, launches = counted(lambda: warp_image(
             img, K, R, scale, API_CANVAS, kind, use_kernel=False))
         check(launches["warp_batched"] == 0, f"{kind}: plain launched K2")
@@ -2886,7 +2909,7 @@ def phase_serve_path(state):
     n_a = sum(ln.strip().startswith("served batch of") for ln in lines)
     want = {"detect_maps": 1 + n_a, "sift_octave_maps": 0,
             "warp_batched": 1 + n_a, "slab_probe": 0}
-    check(rc == 0 and launches_a == want and "served 32 requests" in
+    check(rc == 0 and _matches(launches_a, want) and "served 32 requests" in
           lines[-1] and not any("SOME INVALID" in ln for ln in lines),
           f"serve_demo defaults: rc {rc}, launches {launches_a}, want "
           f"{want}; {lines[-3:]}")
@@ -2906,7 +2929,8 @@ def phase_serve_path(state):
     n = len(record)
     want = {"detect_maps": n, "sift_octave_maps": 0, "warp_batched": n,
             "slab_probe": 0}
-    check(launches == want, f"serve 1080p: launches {launches}, want {want}")
+    check(_matches(launches, want),
+          f"serve 1080p: launches {launches}, want {want}")
     check(sum(e["n"] for e in record) == n_req
           and [e["seed"] for e in record] == list(range(n)),
           f"serve 1080p: dispatches {[(e['seed'], e['n']) for e in record]}")
@@ -2969,7 +2993,7 @@ def phase_warm_start(state):
     launches = _read_counts()
     want = {"detect_maps": 2, "sift_octave_maps": 0, "warp_batched": 1,
             "slab_probe": 0}
-    check(launches == want and bool(m["h_valid"]),
+    check(_matches(launches, want) and bool(m["h_valid"]),
           f"warm_start: launches {launches}, h_valid {bool(m['h_valid'])}")
     _record_path(state, "warm_start", launches)
     del pano, a, b
@@ -3299,7 +3323,122 @@ def phase_lm_bundle(state):
         out[shape]["kernel_ms"] = split["ms"]
         out[shape]["kernel_ms_per_iter"] = \
             split["ms"] / out[shape]["iters_kernel"]
+    state.setdefault("lm", {}).update(
+        name="lm_bundle", route="cuda",
+        source="imagestitch_tpu_torch/csrc/lm_bundle.cu", replaces=None,
+        ms=out["pair"]["kernel_ms"], plain_ms=out["pair"]["plain_ms"],
+        bound_ms=None, bound_by="latency", library_ms=None,
+        case="the pair's ray adjustment, warm", chain=out["chain"])
     emit({"phase": "lm_bundle", **out, "card": state["name"],
+          "smi": state["smi"]})
+
+
+def _dp_cell_costs(state):
+    """The DP seam's costs as `stitch_pair` of the 1080p rotation pair
+    hands them to the kernel, under the ORB pair cell's configuration
+    (365 x 544) and the SIFT cell's (486 x 640)."""
+    from imagestitch_tpu_torch import (DetectorConfig, MatcherConfig,
+                                       PipelineConfig, WarpConfig,
+                                       stitch_pair)
+    from imagestitch_tpu_torch.ops import cuda_dp
+    img1, img2, _, _ = state["rot"]
+    cfgs = {"pair": PipelineConfig(),
+            "sift": PipelineConfig(
+                detector=DetectorConfig(kind="sift"),
+                matcher=MatcherConfig(match_conf=0.51),
+                warp=WarpConfig(kind="plane", canvas_scale_h=1.8))}
+    launch = cuda_dp.seam_path
+    out = {}
+    for name, cfg in cfgs.items():
+        seen = []
+
+        def spy(cost, transitions):
+            seen.append(cost.clone())
+            return launch(cost, transitions)
+
+        cuda_dp.seam_path = spy
+        try:
+            stitch_pair(img1, img2, cfg)
+        finally:
+            cuda_dp.seam_path = launch
+        check(len(seen) == 1, f"{len(seen)} DP seams in one {name} stitch")
+        out[name] = (cfg, seen[0])
+    return out
+
+
+def phase_dp_seam(state):
+    """The DP seam kernel (csrc/dp_seam.cu) on the costs of the ORB pair
+    cell and of the SIFT cell (`_dp_cell_costs`): one launch per seam and
+    the seam columns equal to the plain loop's bit for bit. Then, per
+    cell, the `seam_blend` and `seam_dp` stages of warm stitches with the
+    kernel and with the plain loop forced (median of 5); the plain loop's
+    and the wrapper's wall (synchronized; median of 5 and 20); last, the
+    kernel alone from torch.profiler kernel events (median of 20), with L2
+    flushed by a 256 MB write and warm."""
+    import statistics
+    import torch
+    from imagestitch_tpu_torch import stitch_pair
+    from imagestitch_tpu_torch.seam import dp
+    from imagestitch_tpu_torch.utils.timing import (FLUSH_BYTES,
+                                                    kernel_split_ms)
+    img1, img2, _, _ = state["rot"]
+    out = {}
+    calls = {}
+    for name, (cfg, cost) in _dp_cell_costs(state).items():
+        _reset_counts()
+        k = dp.dp_seam_path(cost)
+        launches = _read_counts()["dp_seam"]
+        p = dp._dp_seam_path_plain(cost)
+        check(launches == 1 and torch.equal(k, p),
+              f"DP kernel {name}: {launches} launches, seam columns apart "
+              f"from the plain loop's in {int((k != p).sum())} rows")
+        stages = {}
+        takes = dp.takes_kernel
+        for path, forced in (("kernel", takes),
+                             ("plain", lambda dev: False)):
+            dp.takes_kernel = forced
+            try:
+                ms = [stitch_pair(img1, img2, cfg)[1] for _ in range(6)][1:]
+            finally:
+                dp.takes_kernel = takes
+            stages[path] = {s: statistics.median(m[s] for m in ms)
+                            for s in ("seam_blend", "seam_dp",
+                                      "stitch_pair_total")}
+        walls = {}
+        for key, fn, n in (
+                ("plain_ms", lambda c=cost: dp._dp_seam_path_plain(c), 5),
+                ("wrapper_ms", lambda c=cost: dp.dp_seam_path(c), 20)):
+            ts = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            walls[key] = statistics.median(ts)
+        out[name] = dict(shape=list(cost.shape), launches=launches,
+                         stages_ms=stages, **walls)
+        calls[name] = lambda c=cost: dp.dp_seam_path(c)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    for name, fn in calls.items():
+        cold = kernel_split_ms(fn, N_TIMED, ("dp_seam_kernel",), flush)
+        check(cold["kernels"] == 1,
+              f"{cold['kernels']} DP kernels per seam in the trace")
+        out[name]["kernel_ms"] = cold["ms"]
+    del flush
+    for name, fn in calls.items():
+        out[name]["kernel_warm_ms"] = kernel_split_ms(
+            fn, N_TIMED, ("dp_seam_kernel",))["ms"]
+    state.setdefault("dp", {}).update(
+        name="dp_seam", route="cuda",
+        source="imagestitch_tpu_torch/csrc/dp_seam.cu", replaces=None,
+        max_abs_err=0, ms=out["pair"]["kernel_ms"],
+        warm_ms=out["pair"]["kernel_warm_ms"],
+        plain_ms=out["pair"]["plain_ms"], bound_ms=None,
+        bound_by="latency", library_ms=None,
+        case="the pair cell's (365, 544) cost, L2 flushed",
+        sift=out["sift"])
+    emit({"phase": "dp_seam", **out, "card": state["name"],
           "smi": state["smi"]})
 
 
@@ -3349,7 +3488,7 @@ def main(only=()) -> int:
               ("cli", phase_cli), ("api_path", phase_api_path),
               ("serve_path", phase_serve_path),
               ("warm_start", phase_warm_start),
-              ("lm_bundle", phase_lm_bundle),
+              ("lm_bundle", phase_lm_bundle), ("dp_seam", phase_dp_seam),
               ("stages", phase_stages), ("kernel_times", phase_kernel_times)]
     unknown = set(only) - {name for name, _ in phases}
     if unknown:
@@ -3366,8 +3505,7 @@ def main(only=()) -> int:
             return 1
     import torch
     if not only:
-        emit({"kernels": [state["k1"], state["k2"], state["k3"],
-                          state["k4"]]})
+        emit({"kernels": [state[k] for k in KERNEL_KEYS]})
     print(state["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -782,8 +782,10 @@ def stitch_pair(img1, img2, config: PipelineConfig | None = None,
     (metrics "front" and "host_seam_blend"; otherwise
     "stitch_pair_total"). The metrics also hold the wall ms of the stages
     inside (detect, match, cameras, bundle_adjust, lm_step, warp,
-    exposure; seam_blend, or seam_readback, seam and blend; readback_crop)
-    and the counters `lm_iters` and `readback_bytes`."""
+    exposure; seam_blend with the DP seam's seam_dp inside, or
+    seam_readback, seam and blend; readback_crop) and the counters
+    `lm_iters` and `readback_bytes`, and on the card `lm_fused` and
+    `dp_fused` (the adjustments and DP seams run as one kernel launch)."""
     cfg = config or PipelineConfig()
     dev = resolve_device(device)
     set_full_precision()

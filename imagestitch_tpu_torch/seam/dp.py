@@ -3,10 +3,14 @@ colour (or colour over gradient) costs over the overlap and a minimal-cost
 top-to-bottom path with moves in {-1, 0, +1}, found row by row; the masks
 split along it. Also the seam-anchored ramp weights of `blend.ramp`.
 
-The forward recurrence runs on the cost's device, one row per step; the
-backtrack reads the int8 choices back to the host once. Transition rows
-are padded to a multiple of 8 with free rows, as the JAX package's chunked
-scan does, so both start their backtrack from the same padded bottom.
+The path is found one of two ways, chosen by the cost's device
+(`takes_kernel`): on a CUDA device the forward recurrence, the argmin and
+the backtrack are one launch of the kernel of `csrc/dp_seam.cu`
+(`ops/cuda_dp`), and nothing is read back; CPU tensors take the plain
+loop, one row per step and a backtrack that reads the int8 choices back
+to the host once. Both pad the transition rows to a multiple of 8 with
+free rows (`_transitions`), as the JAX package's chunked scan does, so
+each starts its backtrack from the JAX package's padded bottom.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from imagestitch_tpu_torch.ops import cuda_dp
 from imagestitch_tpu_torch.ops.image import rgb_to_gray, sobel
 from imagestitch_tpu_torch.utils import log
 
@@ -43,16 +48,41 @@ def _shift_big(x: torch.Tensor, s: int) -> torch.Tensor:
     return torch.cat([big, x[:-1]]) if s > 0 else torch.cat([x[1:], big])
 
 
+def takes_kernel(device: torch.device) -> bool:
+    """Whether a DP seam over costs on `device` runs as one launch of the
+    DP kernel (`ops/cuda_dp`): on a CUDA device, at every width."""
+    return device.type == "cuda"
+
+
+def _transitions(height: int) -> int:
+    """The rows of choices for `height` cost rows: height - 1 padded up to
+    a multiple of `_CHUNK` with free rows, so the kernel and the plain
+    loop start their backtrack from the JAX package's padded bottom."""
+    return height - 1 + (-(height - 1)) % _CHUNK
+
+
 def dp_seam_path(cost: torch.Tensor) -> torch.Tensor:
     """Min-cost top-to-bottom path through (H, W) costs; rows with no
     overlap (all BIG) are free. Returns the seam column per row, (H,)
-    int64 on the cost's device. The choices read back for the backtrack
-    add their bytes to the active timer's `readback_bytes`."""
+    int64 on the cost's device. A stage `seam_dp` of the active timer; a
+    seam the kernel solved (in float32) adds 1 to its counter `dp_fused`."""
+    with log.stage("seam_dp"):
+        if takes_kernel(cost.device):
+            cols = cuda_dp.seam_path(cost.to(torch.float32),
+                                     _transitions(cost.shape[0]))
+            log.count("dp_fused")
+            return cols
+        return _dp_seam_path_plain(cost)
+
+
+def _dp_seam_path_plain(cost: torch.Tensor) -> torch.Tensor:
+    """`dp_seam_path` as the plain loop (CPU tensors). The choices read
+    back for the backtrack add their bytes to the active timer's
+    `readback_bytes`."""
     H, W = cost.shape
     row_has = (cost < BIG).any(dim=1)
     e = torch.where(row_has[:, None], cost, torch.zeros_like(cost))
-    n_rest = H - 1
-    n_pad = (-n_rest) % _CHUNK
+    n_pad = _transitions(H) - (H - 1)
     rest = torch.cat([e[1:], e.new_zeros((n_pad, W))])
     m = e[0]
     choices = []

@@ -307,7 +307,7 @@ def test_host_stitch_chain_matches_jax():
     # the JAX entry's keys, and the stages inside the port's and their
     # counter (no bundle adjustment here; tests/test_torch_spans.py)
     inside = {"detect", "match", "cameras", "warp", "exposure",
-              "seam_blend", "readback_crop", "readback_bytes"}
+              "seam_blend", "seam_dp", "readback_crop", "readback_bytes"}
     assert sorted(mt) == sorted({*mj, *inside})
     assert mt["h_valid"] == mj["h_valid"] and all(mt["h_valid"])
     assert mt["reachable"] == mj["reachable"]

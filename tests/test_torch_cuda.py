@@ -12,14 +12,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from imagestitch_tpu_torch import (DetectorConfig, PipelineConfig,  # noqa
-                                   WarpConfig, stitch_pair)
+from imagestitch_tpu_torch import (BlendConfig, DetectorConfig,  # noqa
+                                   MatcherConfig, PipelineConfig,
+                                   SeamConfig, WarpConfig, stitch_pair,
+                                   stitch_pairs_batched)
 from imagestitch_tpu_torch.convert import cameras_from_numpy  # noqa: E402
 from imagestitch_tpu_torch.geometry import bundle  # noqa: E402
-from imagestitch_tpu_torch.ops import (cuda_detect, cuda_lm,  # noqa: E402
-                                       cuda_sift, cuda_slab_probe,
+from imagestitch_tpu_torch.ops import (cuda_detect, cuda_dp,  # noqa: E402
+                                       cuda_lm, cuda_sift, cuda_slab_probe,
                                        cuda_warp)
 from imagestitch_tpu_torch.ops import slab_probe  # noqa: E402
+from imagestitch_tpu_torch.seam import dp  # noqa: E402
 from imagestitch_tpu_torch.pipeline import (_pano_canvas_shape,  # noqa
                                             warp_inputs)
 from imagestitch_tpu_torch.utils import log  # noqa: E402
@@ -1106,3 +1109,173 @@ def test_lm_kernel_raises_on_a_pair_outside_the_cameras(cuda):
     K, x0, (src, dst, ptv, pv, pf, pt), pp = _lm_inputs(cuda, kind, **kw)
     with pytest.raises(ValueError, match="outside"):
         cuda_lm.lm_minimize(kind, x0, src, dst, ptv, pv, pf, pt + 1, *pp, 5)
+
+
+# The DP seam kernel (csrc/dp_seam.cu) against the plain loop
+# (seam/dp._dp_seam_path_plain) on the same CUDA costs: the same seam
+# columns, bit for bit.
+DP_CELLS = {
+    # the ORB pair cell: 1458-row canvas, dp_scale 4, window 2176 -> 544
+    "pair": (PipelineConfig(), (365, 544)),
+    # the SIFT cell: plane into 1944 rows, window 2560 -> 640
+    "sift": (PipelineConfig(
+        detector=DetectorConfig(kind="sift"),
+        matcher=MatcherConfig(match_conf=0.51),
+        warp=WarpConfig(kind="plane", canvas_scale_h=1.8)), (486, 640)),
+    # the ramp blend's own seam at scale 1, window 2176
+    "ramp": (PipelineConfig(seam=SeamConfig(kind="dp_colorgrad"),
+                            blend=BlendConfig(kind="ramp")), (1458, 2176)),
+    # a horizontal seam: the transposed canvas, window 1280 -> 320
+    "horizontal": (PipelineConfig(seam=SeamConfig(orient="horizontal")),
+                   (1008, 320)),
+}
+
+
+@pytest.fixture(scope="module")
+def dp_cell_costs():
+    """The costs the kernel is handed inside a 1080p rotation-pair stitch
+    on the card, for each of `DP_CELLS`' configurations."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    a, b, _, _ = synthetic_rotation_pair(1080, 1920, yaw_deg=20.0)
+    launch = cuda_dp.seam_path
+    out = {}
+    for name, (cfg, _) in DP_CELLS.items():
+        seen = []
+
+        def spy(cost, transitions):
+            seen.append(cost.clone())
+            return launch(cost, transitions)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(cuda_dp, "seam_path", spy)
+            _, m = stitch_pair(a, b, cfg, device="cuda")
+        assert m["dp_fused"] == len(seen) == 1, name
+        out[name] = seen[0]
+    return out
+
+
+def _dp_both(cost):
+    """(the kernel's columns, the plain loop's) for one CUDA cost; the
+    kernel in one launch, through `dp.dp_seam_path`."""
+    n0 = cuda_dp.launch_count
+    k = dp.dp_seam_path(cost)
+    assert cuda_dp.launch_count == n0 + 1
+    return k, dp._dp_seam_path_plain(cost)
+
+
+@pytest.mark.parametrize("name", list(DP_CELLS))
+def test_dp_kernel_matches_plain_on_cell_costs(dp_cell_costs, name):
+    cost = dp_cell_costs[name]
+    assert tuple(cost.shape) == DP_CELLS[name][1]
+    k, p = _dp_both(cost)
+    assert k.dtype == torch.int64 and k.device == cost.device
+    assert torch.equal(k, p)
+
+
+def _dp_cost(shape, seed, free_rows=(), ties=False):
+    """Seeded float32 costs on the card: a ragged band of finite costs
+    (small integers with `ties`, so most moves tie) with BIG outside, and
+    the rows in `free_rows` all BIG (no overlap)."""
+    h, w = shape
+    rng = np.random.default_rng(seed)
+    c = (rng.integers(0, 3, (h, w)) if ties
+         else rng.uniform(0, 500, (h, w))).astype(np.float32)
+    lo = rng.integers(0, max(w // 5, 1), h)
+    hi = w - rng.integers(0, max(w // 5, 1), h)
+    cols = np.arange(w)[None, :]
+    c[(cols < lo[:, None]) | (cols >= hi[:, None])] = dp.BIG
+    c[list(free_rows)] = dp.BIG
+    return torch.as_tensor(c, device="cuda")
+
+
+@pytest.mark.parametrize("shape,free_rows,ties", [
+    ((97, 131), (), False), ((97, 131), (), True),     # W % 32 != 0
+    ((50, 1), (), False), ((1, 1), (), False), ((1, 37), (), False),
+    ((2, 33), (), True), ((9, 64), (), False),
+    ((120, 200), (0, 1, 2), False),                     # top
+    ((120, 200), tuple(range(50, 70)), False),          # middle
+    ((120, 200), (117, 118, 119), True),                # bottom
+    ((120, 200), tuple(range(120)), False),             # all BIG
+    ((64, 1024), (), True), ((64, 1025), (), True),     # 1 | 2 a thread:
+    ((40, 2049), (), False), ((40, 4096), (), True),    # the further
+    ((40, 4097), (), True), ((24, 8193), (5,), False),  # columns load in
+    ((16, 16384), (), True), ((12, 20000), (3,), False),    # the row
+    ((9, 40000), (), True), ((10, 40001), (0, 9), False)])  # m global
+def test_dp_kernel_matches_plain_on_shapes(cuda, shape, free_rows, ties):
+    k, p = _dp_both(_dp_cost(shape, sum(shape), free_rows, ties))
+    assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("value", [0.0, 3.0, 1e9])
+def test_dp_kernel_matches_plain_on_constant_costs(cuda, value):
+    """Every move ties: the first minimum decides each choice."""
+    for shape in ((37, 53), (365, 544)):
+        cost = torch.full(shape, value, device=cuda)
+        k, p = _dp_both(cost)
+        assert torch.equal(k, p), shape
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_dp_kernel_matches_plain_on_seeds(cuda, seed):
+    """The pair cell's shape, the SIFT cell's and a transposed (not
+    contiguous) scale-1 cost, seeded."""
+    for shape in ((365, 544), (486, 640)):
+        k, p = _dp_both(_dp_cost(shape, 1000 + seed, ties=seed % 2 == 1))
+        assert torch.equal(k, p), shape
+    cost = _dp_cost((1408, 900), 2000 + seed).T
+    assert not cost.is_contiguous()
+    k, p = _dp_both(cost)
+    assert torch.equal(k, p)
+
+
+def test_dp_kernel_is_deterministic(cuda):
+    cost = _dp_cost((365, 544), 5, ties=True)
+    assert torch.equal(dp.dp_seam_path(cost), dp.dp_seam_path(cost))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16])
+def test_dp_kernel_takes_other_dtypes_as_float32(cuda, dtype):
+    """A cost of another dtype on the card goes to the kernel as float32:
+    the plain loop's columns on the float32 cost."""
+    cost = _dp_cost((365, 544), 9).to(dtype)
+    n0 = cuda_dp.launch_count
+    k = dp.dp_seam_path(cost)
+    assert cuda_dp.launch_count == n0 + 1
+    assert torch.equal(k, dp._dp_seam_path_plain(cost.to(torch.float32)))
+
+
+def test_stitch_pair_dp_kernel_equals_plain_panorama(cuda):
+    """Four 1080p rotation pairs (yaw 15-30 deg, the pair cells' pool's
+    range) stitched on the card through the DP kernel and with the plain
+    loop forced: the same uint8 panorama byte for byte, `dp_fused` 1
+    against none, and the kernel's stitch reading back less by exactly the
+    choices' bytes (one (368, 544) int8 buffer)."""
+    for i, yaw in enumerate((15.0, 20.0, 25.0, 30.0)):
+        a, b, _, _ = synthetic_rotation_pair(1080, 1920, yaw_deg=yaw,
+                                             seed=40 + i)
+        g = torch.Generator().manual_seed(i)
+        draws = (torch.rand((2048, 4), generator=g),
+                 torch.rand((256, 4), generator=g))
+        pk, mk = stitch_pair(a, b, device=cuda, draws=draws)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(dp, "takes_kernel", lambda dev: False)
+            pp, mp_ = stitch_pair(a, b, device=cuda, draws=draws)
+        assert mk["dp_fused"] == 1 and "dp_fused" not in mp_
+        assert pk.shape == pp.shape and np.array_equal(pk, pp), yaw
+        assert mp_["readback_bytes"] - mk["readback_bytes"] == 368 * 544
+
+
+def test_batched_dispatch_launches_one_dp_kernel_per_pair(cuda):
+    """`stitch_pairs_batched` of 8 pairs: 8 DP launches, and the same
+    panoramas as with the plain loop forced."""
+    pairs = np.stack([np.stack(synthetic_rotation_pair(
+        192, 256, yaw_deg=10.0 + i, seed=60 + i)[:2]) for i in range(8)])
+    n0 = cuda_dp.launch_count
+    pk = stitch_pairs_batched(pairs, device=cuda)[0]
+    assert cuda_dp.launch_count == n0 + 8
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dp, "takes_kernel", lambda dev: False)
+        pp = stitch_pairs_batched(pairs, device=cuda)[0]
+    assert cuda_dp.launch_count == n0 + 8
+    assert torch.equal(pk, pp)

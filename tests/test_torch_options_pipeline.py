@@ -165,8 +165,9 @@ def test_stitcher_detailed_matches_jax(detailed_runs, name):
     _, mj, pj, vj = detailed_runs[name]["j"]
     pt_u8, mt, pt, vt = detailed_runs[name]["t"]
     # the JAX Stitcher's keys, and the port's LM steps inside its
-    # bundle_adjust and its counters (tests/test_torch_spans.py)
-    assert sorted(mt) == sorted({*mj, "lm_step", "lm_iters",
+    # bundle_adjust, its DP seam stage and its counters
+    # (tests/test_torch_spans.py)
+    assert sorted(mt) == sorted({*mj, "lm_step", "seam_dp", "lm_iters",
                                  "readback_bytes"})
     assert mt["reachable"] == mj["reachable"] == [True] * 3
     assert abs(mt["focal"] - mj["focal"]) <= 1e-3 * mj["focal"]

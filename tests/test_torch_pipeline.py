@@ -112,7 +112,7 @@ def test_host_stitch_pair_matches_jax(runs, name):
     # the JAX entry's keys, and the stages inside the port's and their
     # counters (tests/test_torch_spans.py)
     inside = {"detect", "match", "cameras", "bundle_adjust", "lm_step",
-              "warp", "exposure", "seam_blend", "readback_crop",
+              "warp", "exposure", "seam_blend", "seam_dp", "readback_crop",
               "lm_iters", "readback_bytes"}
     assert sorted(md) == sorted(mt) == sorted({*mj, *inside})
     assert pd.shape == pj.shape and pd.dtype == np.uint8

@@ -311,7 +311,7 @@ def test_sift_host_stitch_pair_matches_jax(stitch_runs):
     # counters (tests/test_torch_spans.py), the SIFT detector's among them
     # (tests/test_torch_sift_plane.py)
     inside = {"detect", "match", "cameras", "bundle_adjust", "lm_step",
-              "warp", "exposure", "seam_blend", "readback_crop",
+              "warp", "exposure", "seam_blend", "seam_dp", "readback_crop",
               "lm_iters", "readback_bytes", "sift_maps", "sift_refine",
               "sift_orient", "sift_describe", "sift_kpts"}
     assert sorted(mt) == sorted({*mj, *inside})

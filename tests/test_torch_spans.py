@@ -12,7 +12,8 @@ small sizes (`utils/log`'s active `StageTimer`).
   from their shapes: the float32 canvas and its mask (`_to_uint8`), the
   DP backtrack's int8 choices, the graph cut's seam inputs.
 - In a CPU `torch.profiler` trace every stage is a range nested in its
-  entry's outer stage, and each `lm_step` in `bundle_adjust`.
+  entry's outer stage, each `lm_step` in `bundle_adjust` and each
+  `seam_dp` (the DP seam) in `seam_blend`.
 - With no active timer nothing opens a range or counts; threads keep
   their timers apart; the profiler changes no result.
 """
@@ -62,7 +63,7 @@ CASES = {
 
 # the stages inside an entry, by the entry's outer stages
 FRONT = ("detect", "match", "cameras", "bundle_adjust", "warp", "exposure")
-DEVICE_SEAM = ("seam_blend", "readback_crop")
+DEVICE_SEAM = ("seam_blend", "seam_dp", "readback_crop")
 HOST_SEAM = ("seam_readback", "seam", "blend", "readback_crop")
 COUNTERS = ("lm_iters", "readback_bytes")
 
@@ -224,6 +225,8 @@ def test_stages_nest_in_the_profiler_trace(runs, case):
             assert r[name] and inside(name, outer), (name, outer)
     assert len(r["lm_step"]) == runs[case]["m_p"]["lm_iters"]
     assert inside("lm_step", "bundle_adjust")
+    if "seam_dp" in r:
+        assert inside("seam_dp", "seam_blend")
 
 
 @pytest.mark.parametrize("case", ["pair_dp", "chain_graphcut"])
