@@ -1150,7 +1150,7 @@ def _chain_stages(views, n_warm: int):
         mark("exposure")
         pano, valid = P._seam_and_blend(warped, masks, cfg, w, h)
         mark("seam_blend")
-        P._crop_valid(pano.cpu().numpy(), valid.cpu().numpy())
+        P._to_uint8(pano, valid)
         mark("readback_crop")
 
     runs = []
@@ -1542,13 +1542,12 @@ def phase_stream_path(state):
 
 # bench.py's batched shapes (configs[4]): (name, pairs, height, width)
 BATCH_CASES = (("pairs8_1080p", 8, 1080, 1920), ("pairs32_vga", 32, 480, 640))
-BATCH_STAGES = ("upload", "detect", "match", "cameras", "warp", "exposure",
-                "seam_blend")
 
 
 def _batch_split(pairs_np, cfg):
     """Wall ms of each stage of one stitch_pairs_batched call (a
-    StageTimer, synchronized between stages), the second of two runs."""
+    StageTimer made active, synchronized between stages: upload and the
+    stages inside), the second of two runs."""
     import torch
     from imagestitch_tpu_torch.parallel.batch import (
         stitch_pairs_batched_impl)
@@ -1557,9 +1556,10 @@ def _batch_split(pairs_np, cfg):
         timer = StageTimer("cuda")
         gen = torch.Generator(device="cuda")
         gen.manual_seed(0)
-        with timer.stage("upload"):
-            x = torch.as_tensor(pairs_np, device="cuda").float()
-        stitch_pairs_batched_impl(x, cfg, generator=gen, timer=timer)
+        with timer.active():
+            with timer.stage("upload"):
+                x = torch.as_tensor(pairs_np, device="cuda").float()
+            stitch_pairs_batched_impl(x, cfg, generator=gen)
     return timer.summary()
 
 
@@ -2366,13 +2366,8 @@ def _seam_stage_ms(views, n_warm: int = 3):
         pano._independent_pair_seams(warped, masks, cfg, max_w)
 
     def sequential():
-        sm = [masks[i] for i in range(len(views))]
-        for u in range(len(views) - 1):
-            sm[u], sm[u + 1] = P._seam_pair(warped[u], warped[u + 1], sm[u],
-                                            sm[u + 1], cfg, max_w,
-                                            -(-int(round(1.1 * h)) // 128)
-                                            * 128)
-        torch.stack(sm)
+        P._seam_masks(warped, masks, cfg, max_w=max_w,
+                      max_h=-(-int(round(1.1 * h)) // 128) * 128)
 
     out = {}
     for name, fn in (("independent", independent),
@@ -3156,7 +3151,7 @@ def _stage_breakdown(img1, img2, cfg, n_warm: int, trace: bool = True):
         mark("exposure")
         pano, valid = P._seam_and_blend(warped, masks, cfg, W, H)
         mark("seam_blend")
-        P._crop_valid(pano.cpu().numpy(), valid.cpu().numpy())
+        P._to_uint8(pano, valid)
         mark("readback_crop")
 
     runs = []

@@ -7,13 +7,11 @@ subpixel refinement with the interpolated-contrast test, up to two
 orientations per keypoint from a 36-bin histogram, and the 4x4x8
 descriptor over a rotated, scale-sized 17x17 sample grid.
 
-Spans and a counter on the active timer (`utils/log`; nothing without
-one): each octave opens `sift_maps` (the octave-maps launch, the next
-octave's resize, the block top-k), `sift_refine` (the subpixel refinement
-and the contrast test), `sift_orient` (the orientation histograms and
-peaks) and `sift_describe` (the descriptor call and the per-peak
-assembly); the counter `sift_kpts` adds the valid keypoints the image
-keeps, read back only while a timer is active.
+Spans on the active timer (`utils/log`; nothing without one): each
+octave opens `sift_maps` (the octave-maps launch, the next octave's
+resize, the block top-k), `sift_refine` (the subpixel refinement and the
+contrast test), `sift_orient` (the orientation histograms and peaks) and
+`sift_describe` (the descriptor call and the per-peak assembly).
 
 Every top-k breaks ties by ascending index, the order `lax.top_k` gives;
 `torch.round` rounds half to even like `jnp.round`. The histogram and
@@ -369,7 +367,4 @@ def detect_and_compute_sift(gray: torch.Tensor,
         descriptors=torch.cat(descs, dim=0),
         img_size=torch.tensor([H, W], dtype=torch.int32, device=dev),
     )
-    feats = _pad_or_trim(feats, cfg.max_keypoints)
-    # the count is read back only where a timer is active (`log.count`)
-    log.count("sift_kpts", feats.num_valid())
-    return feats
+    return _pad_or_trim(feats, cfg.max_keypoints)

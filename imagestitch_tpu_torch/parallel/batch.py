@@ -22,7 +22,6 @@ mesh's first device in pair order.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 
@@ -40,6 +39,7 @@ from imagestitch_tpu_torch.pipeline import (
     _work_grays, pair_cameras, pair_metrics, resolve_device,
     set_full_precision, warp_inputs, warp_scale, warp_views)
 from imagestitch_tpu_torch.types import index
+from imagestitch_tpu_torch.utils import log
 
 
 def stitch_pairs_batched(pairs, config: PipelineConfig | None = None,
@@ -124,26 +124,23 @@ def stitch_pairs_sharded(pairs, mesh: Mesh,
 
 def stitch_pairs_batched_impl(pairs: torch.Tensor, cfg: PipelineConfig,
                               draws=None,
-                              generator: torch.Generator | None = None,
-                              timer=None):
+                              generator: torch.Generator | None = None):
     """(B, 2, H, W, 3) float32 pairs on one device -> (panos, valids,
     corners, metrics), with `cfg` taken as given (no orient resolution):
     the front of each pair (detect, match, cameras, warp) with SCANS mode
     normalized, the seam and blend with `cfg` itself, as
-    `stitch_pair_impl` does. `timer`: an optional `utils.log.StageTimer` that times detect, match,
-    cameras (with the bundle adjustment), warp, exposure and seam_blend."""
-    def stage(name):
-        return timer.stage(name) if timer else contextlib.nullcontext()
-
+    `stitch_pair_impl` does. Stages of the active timer: detect, match,
+    each pair's `pair_cameras` stages, warp (each pair's warp inputs and
+    the one launch), exposure and seam_blend."""
     fcfg = _normalize_scans(cfg)
     B, _, H, W = pairs.shape[:4]
     views = pairs.reshape((2 * B,) + tuple(pairs.shape[2:])).contiguous()
     ids = [(2 * b, 2 * b + 1) for b in range(B)]
     ws = _megapix_scale(cfg.work_megapix, (H, W))
-    with stage("detect"):
+    with log.stage("detect"):
         feats = detect_batched(_work_grays(rgb_to_gray(views), (H, W), ws),
                                fcfg.detector)
-    with stage("match"):
+    with log.stage("match"):
         mis = match_pairs(feats, ids, fcfg.matcher, fcfg.ransac,
                           None if draws is None
                           else {p: draws[b] for b, p in enumerate(ids)},
@@ -151,16 +148,16 @@ def stitch_pairs_batched_impl(pairs: torch.Tensor, cfg: PipelineConfig,
 
     canvas_hw = _pano_canvas_shape((H, W), 2, cfg)
     fs, cams, scales, inputs = [], [], [], []
-    with stage("cameras"):
-        for b, (i, j) in enumerate(ids):
-            f1, f2 = index(feats, i), index(feats, j)
-            c = pair_cameras(f1, f2, mis[b], ((H, W), (H, W)), fcfg, ws)
+    for b, (i, j) in enumerate(ids):
+        f1, f2 = index(feats, i), index(feats, j)
+        c = pair_cameras(f1, f2, mis[b], ((H, W), (H, W)), fcfg, ws)
+        with log.stage("warp"):
             s = warp_scale(c)
-            fs.append((f1, f2))
-            cams.append(c)
-            scales.append(s)
             inputs.append(warp_inputs(c, s, (H, W), 2, canvas_hw, fcfg))
-    with stage("warp"):
+        fs.append((f1, f2))
+        cams.append(c)
+        scales.append(s)
+    with log.stage("warp"):
         corners = torch.stack([inp[1] for inp in inputs])
         warped, masks = warp_views(
             views, torch.cat([inp[0] for inp in inputs]),
@@ -170,11 +167,11 @@ def stitch_pairs_batched_impl(pairs: torch.Tensor, cfg: PipelineConfig,
             fcfg.warp.kind)
 
     panos, valids, metrics = [], [], []
-    with stage("exposure"):
+    with log.stage("exposure"):
         per_pair = [_apply_exposure(warped[2 * b:2 * b + 2],
                                     masks[2 * b:2 * b + 2], cfg)
                     for b in range(B)]
-    with stage("seam_blend"):
+    with log.stage("seam_blend"):
         for b in range(B):
             pano, valid = _seam_and_blend(per_pair[b],
                                           masks[2 * b:2 * b + 2], cfg,

@@ -282,6 +282,26 @@ def _apply_exposure(warped, masks, cfg: PipelineConfig):
     return warped
 
 
+def _warp_expose(imgs, cams: CameraParams, hw: tuple[int, int],
+                 cfg: PipelineConfig, reachable=None, src_sizes=None,
+                 warp=None):
+    """`_warp_all_shared` at the median focal (stage `warp`; the coverage
+    ANDed with `reachable` (N,) bool where given), then `_apply_exposure`
+    (stage `exposure`). Returns (warped, masks, corner, overflow,
+    roi_uvs)."""
+    scale = warp_scale(cams)
+    canvas_hw = _pano_canvas_shape(hw, imgs.shape[0], cfg)
+    with log.stage("warp"):
+        warped, masks, corner, overflow, roi_uvs = _warp_all_shared(
+            imgs, cams, scale, canvas_hw, cfg, src_sizes=src_sizes,
+            warp=warp)
+        if reachable is not None:
+            masks = masks & reachable[:, None, None]
+    with log.stage("exposure"):
+        warped = _apply_exposure(warped, masks, cfg)
+    return warped, masks, corner, overflow, roi_uvs
+
+
 def _blend_resolved(images, seam_masks, masks, cfg: PipelineConfig,
                     dilate_seam: bool = True):
     """Blend shared-frame canvases with resolved seam masks: a k x k rect
@@ -326,6 +346,17 @@ def _seam_and_blend(images, masks, cfg: PipelineConfig,
             use_grad=cfg.seam.kind == "dp_colorgrad", max_overlap_w=max_w)
         return out, valid
     _refuse_host_seam(cfg)
+    return _blend_resolved(images,
+                           _seam_masks(images, masks, cfg, edges, max_w,
+                                       max_h),
+                           masks, cfg, dilate_seam=cfg.seam.kind != "none")
+
+
+def _seam_masks(images, masks, cfg: PipelineConfig, edges=None,
+                max_w: int | None = None, max_h: int | None = None):
+    """(N, H, W) seam masks of shared-frame canvases: `_seam_pair` along
+    `edges` (the chain (i, i+1) when None); the coverage for kind "none"."""
+    n = images.shape[0]
     seam_masks = [masks[i] for i in range(n)]
     if cfg.seam.kind != "none":
         if edges is None:
@@ -334,8 +365,7 @@ def _seam_and_blend(images, masks, cfg: PipelineConfig,
             seam_masks[u], seam_masks[v] = _seam_pair(
                 images[u], images[v], seam_masks[u], seam_masks[v], cfg,
                 max_w, max_h)
-    return _blend_resolved(images, torch.stack(seam_masks), masks, cfg,
-                           dilate_seam=cfg.seam.kind != "none")
+    return torch.stack(seam_masks)
 
 
 def _seam_pair(img_a, img_b, mask_a, mask_b, cfg: PipelineConfig,
@@ -703,8 +733,6 @@ def stitch_pair_front_impl(img1: torch.Tensor, img2: torch.Tensor,
     img1 = img1.to(torch.float32)
     img2 = img2.to(torch.float32)
     f1, f2, mi, cams = register_pair(img1, img2, cfg, draws, generator)
-    scale = warp_scale(cams)
-    canvas_hw = _pano_canvas_shape((H, W), 2, cfg)
     if (H1, W1) == (H2, W2):
         imgs = torch.stack([img1, img2])
         src_sizes = None
@@ -715,11 +743,8 @@ def stitch_pair_front_impl(img1: torch.Tensor, img2: torch.Tensor,
                          mode="replicate")[0].permute(1, 2, 0)
         imgs = torch.stack([pad(img1, H1, W1), pad(img2, H2, W2)])
         src_sizes = np.asarray([[H1, W1], [H2, W2]], np.int32)
-    with log.stage("warp"):
-        warped, masks, corner, overflow, roi_uvs = _warp_all_shared(
-            imgs, cams, scale, canvas_hw, cfg, src_sizes=src_sizes)
-    with log.stage("exposure"):
-        warped = _apply_exposure(warped, masks, cfg)
+    warped, masks, corner, overflow, roi_uvs = _warp_expose(
+        imgs, cams, (H, W), cfg, src_sizes=src_sizes)
     return warped, masks, corner, pair_metrics(f1, f2, mi, cams, overflow,
                                                roi_uvs)
 
@@ -732,10 +757,17 @@ def stitch_pair_impl(img1: torch.Tensor, img2: torch.Tensor,
     normalizes SCANS mode for itself, as in the JAX package); a host seam
     raises ValueError here (`stitch_pair` splits around it). Stages of
     the active timer: the front's, `seam_blend`."""
-    H = max(img1.shape[0], img2.shape[0])
-    W = max(img1.shape[1], img2.shape[1])
-    warped, masks, corner, metrics = stitch_pair_front_impl(
-        img1, img2, cfg, draws, generator)
+    return _front_seam_blend(stitch_pair_front_impl, (img1, img2), cfg,
+                             draws, generator)
+
+
+def _front_seam_blend(front, views, cfg: PipelineConfig, draws, generator):
+    """`front(*views, ...)`, then `_seam_and_blend` in the stage
+    `seam_blend`, its window sized by the largest of `views` (a pair's two
+    images or a chain's stack). Returns (pano, valid, corner, metrics)."""
+    H = max(v.shape[-3] for v in views)
+    W = max(v.shape[-2] for v in views)
+    warped, masks, corner, metrics = front(*views, cfg, draws, generator)
     with log.stage("seam_blend"):
         pano, valid = _seam_and_blend(warped, masks, cfg, src_w=W, src_h=H)
     return pano, valid, corner, metrics
@@ -762,13 +794,49 @@ def _generator(dev: torch.device, seed: int) -> torch.Generator:
     return gen
 
 
-def _to_uint8(pano: torch.Tensor, valid: torch.Tensor, crop: str = "bbox"):
-    """Read the canvas back, crop it (`_crop_valid`), clip to uint8: the
-    active timer's stage `readback_crop`, the canvas's and mask's bytes
-    added to `readback_bytes`."""
+def _to_uint8(pano: torch.Tensor, valid: torch.Tensor, crop: str = "bbox",
+              dump=None) -> np.ndarray:
+    """The one place a device canvas becomes a host panorama: read back
+    (`_read_back`), crop (`_crop_valid`), clip to uint8, in the stage
+    `readback_crop`. `dump` (a `_StageDumper`) gets the cropped float32
+    canvas and mask as pano.npz."""
     with log.stage("readback_crop"):
-        p, _ = _crop_valid(*_read_back(pano, valid), crop)
-        return np.clip(p, 0, 255).astype(np.uint8)
+        p, v = _crop_valid(*_read_back(pano, valid), crop)
+        out = np.clip(p, 0, 255).astype(np.uint8)
+    if dump is not None:
+        dump("pano", pano=p, valid=v)
+    return out
+
+
+def _stitch_entry(front, total: str, arrays, config: PipelineConfig | None,
+                  seed: int, device, draws):
+    """`stitch_pair`'s and `stitch_chain`'s shell: `arrays` uploaded, one
+    tensor each, through `_front_seam_blend` in the stage `total`, or for
+    a host seam `front` (stage "front") and `_host_seam_blend`, then
+    `_to_uint8`, under an active `StageTimer`. The metrics: the front's
+    (0-d ones as Python scalars), the stages' wall ms, the counters."""
+    cfg = config or PipelineConfig()
+    dev = resolve_device(device)
+    set_full_precision()
+    timer = StageTimer(dev)
+    gen = _generator(dev, seed)
+    views = [torch.as_tensor(np.asarray(a), device=dev) for a in arrays]
+    with timer.active():
+        if _needs_host_seam(cfg):
+            with log.stage("front"):
+                warped, masks, _, metrics = front(*views, cfg, draws, gen)
+            with log.stage("host_seam_blend"):
+                pano, valid, _ = _host_seam_blend(warped, masks, cfg)
+                out = _to_uint8(pano, valid, cfg.crop)
+        else:
+            with log.stage(total):
+                pano, valid, _, metrics = _front_seam_blend(
+                    front, views, cfg, draws, gen)
+                out = _to_uint8(pano, valid, cfg.crop)
+    m = {k: v.detach().cpu().numpy().tolist() for k, v in metrics.items()}
+    m.update(timer.summary())
+    m.update(timer.counts())
+    return out, m
 
 
 def stitch_pair(img1, img2, config: PipelineConfig | None = None,
@@ -786,33 +854,8 @@ def stitch_pair(img1, img2, config: PipelineConfig | None = None,
     seam_readback, seam and blend; readback_crop) and the counters
     `lm_iters` and `readback_bytes`, and on the card `lm_fused` and
     `dp_fused` (the adjustments and DP seams run as one kernel launch)."""
-    cfg = config or PipelineConfig()
-    dev = resolve_device(device)
-    set_full_precision()
-    timer = StageTimer(dev)
-    gen = _generator(dev, seed)
-    a = torch.as_tensor(np.asarray(img1), device=dev)
-    b = torch.as_tensor(np.asarray(img2), device=dev)
-    with timer.active():
-        if _needs_host_seam(cfg):
-            with timer.stage("front"):
-                warped, masks, _, metrics = stitch_pair_front_impl(
-                    a, b, cfg, draws, gen)
-            with timer.stage("host_seam_blend"):
-                pano, valid, _ = _host_seam_blend(warped, masks, cfg)
-                out = _to_uint8(pano, valid, cfg.crop)
-        else:
-            with timer.stage("stitch_pair_total"):
-                pano, valid, _, metrics = stitch_pair_impl(a, b, cfg, draws,
-                                                           gen)
-                out = _to_uint8(pano, valid, cfg.crop)
-    m = {}
-    for k, v in metrics.items():
-        v = v.detach().cpu().numpy()
-        m[k] = v.item() if v.size == 1 else v.tolist()
-    m.update(timer.summary())
-    m.update(timer.counts())
-    return out, m
+    return _stitch_entry(stitch_pair_front_impl, "stitch_pair_total",
+                         (img1, img2), config, seed, device, draws)
 
 
 def _pair_points(feats, mis, pairs):
@@ -938,18 +981,12 @@ def stitch_chain_front_impl(imgs: torch.Tensor,
     `warp`, `exposure`. Returns (warped (N, Hc, Wc, 3), masks (N, Hc,
     Wc), corner, metrics)."""
     cfg = _normalize_scans(cfg)
-    N, H, W = imgs.shape[:3]
+    H, W = imgs.shape[1:3]
     imgs = imgs.to(torch.float32)
     _, mis, cams, reachable = register_chain(imgs, cfg, draws, generator,
                                              steps)
-    scale = warp_scale(cams)
-    canvas_hw = _pano_canvas_shape((H, W), N, cfg)
-    with log.stage("warp"):
-        warped, masks, corner, overflow, roi_uvs = _warp_all_shared(
-            imgs, cams, scale, canvas_hw, cfg, warp=steps.warp)
-        masks = masks & reachable[:, None, None]
-    with log.stage("exposure"):
-        warped = _apply_exposure(warped, masks, cfg)
+    warped, masks, corner, overflow, roi_uvs = _warp_expose(
+        imgs, cams, (H, W), cfg, reachable, warp=steps.warp)
     metrics = {
         "num_inliers": mis.num_inliers, "confidence": mis.confidence,
         "h_valid": mis.h_valid, "focal": cams.focal[0],
@@ -966,12 +1003,8 @@ def stitch_chain_impl(imgs: torch.Tensor,
     metrics): the front, then the seams along the chain and the blend
     (`cfg` as given; a host seam raises ValueError here), the active
     timer's stage `seam_blend`."""
-    H, W = imgs.shape[1:3]
-    warped, masks, corner, metrics = stitch_chain_front_impl(
-        imgs, cfg, draws, generator)
-    with log.stage("seam_blend"):
-        pano, valid = _seam_and_blend(warped, masks, cfg, src_w=W, src_h=H)
-    return pano, valid, corner, metrics
+    return _front_seam_blend(stitch_chain_front_impl, (imgs,), cfg, draws,
+                             generator)
 
 
 # the JAX package's jitted programs by their names: the port runs eagerly,
@@ -994,30 +1027,9 @@ def stitch_chain(images, config: PipelineConfig | None = None,
     RANSAC draws come from a torch.Generator seeded with `seed` on that
     device, unless `draws` injects them per pair (i, j). The metrics also
     hold the stages inside and the counters, as `stitch_pair`'s do."""
-    cfg = config or PipelineConfig()
-    dev = resolve_device(device)
-    set_full_precision()
-    timer = StageTimer(dev)
-    imgs = torch.as_tensor(np.stack([np.asarray(im) for im in images]),
-                           device=dev)
-    gen = _generator(dev, seed)
-    with timer.active():
-        if _needs_host_seam(cfg):
-            with timer.stage("front"):
-                warped, masks, _, metrics = stitch_chain_front_impl(
-                    imgs, cfg, draws, gen)
-            with timer.stage("host_seam_blend"):
-                pano, valid, _ = _host_seam_blend(warped, masks, cfg)
-                out = _to_uint8(pano, valid, cfg.crop)
-        else:
-            with timer.stage("stitch_chain_total"):
-                pano, valid, _, metrics = stitch_chain_impl(imgs, cfg, draws,
-                                                            gen)
-                out = _to_uint8(pano, valid, cfg.crop)
-    m = {k: v.detach().cpu().numpy().tolist() for k, v in metrics.items()}
-    m.update(timer.summary())
-    m.update(timer.counts())
-    return out, m
+    return _stitch_entry(stitch_chain_front_impl, "stitch_chain_total",
+                         (np.stack([np.asarray(im) for im in images]),),
+                         config, seed, device, draws)
 
 
 def _np(v):
@@ -1189,16 +1201,9 @@ class Stitcher:
                     full_sizes = np.maximum(np.round(full_sizes * cs),
                                             1).astype(np.int32)
 
-            with timer.stage("warp"):
-                scale = warp_scale(cams)
-                canvas_hw = _pano_canvas_shape((H, W), n, cfg)
-                warped, masks, corner, overflow, _ = _warp_all_shared(
-                    imgs, cams, scale, canvas_hw, cfg, src_sizes=full_sizes)
-                masks = masks & torch.as_tensor(reachable, device=dev)[
-                    :, None, None]
-
-            with timer.stage("exposure"):
-                warped = _apply_exposure(warped, masks, cfg)
+            warped, masks, corner, overflow, _ = _warp_expose(
+                imgs, cams, (H, W), cfg,
+                torch.as_tensor(reachable, device=dev), full_sizes)
             dump("warped", warped=warped, masks=masks, corner=corner)
 
             with timer.stage("seam_blend"):
@@ -1210,8 +1215,7 @@ class Stitcher:
                     pano, valid = _seam_and_blend(
                         warped, masks, cfg, src_w=W, src_h=H,
                         edges=tree_edges)
-                pano, valid = _crop_valid(*_read_back(pano, valid), cfg.crop)
-            dump("pano", pano=pano, valid=valid)
+                out = _to_uint8(pano, valid, cfg.crop, dump)
         metrics = {
             "n_images": n,
             "focal": float(cams.focal[0]),
@@ -1221,7 +1225,7 @@ class Stitcher:
         }
         metrics.update(timer.summary())
         metrics.update(timer.counts())
-        return np.clip(pano, 0, 255).astype(np.uint8), metrics
+        return out, metrics
 
 
 def stitch(images, config: PipelineConfig | None = None, seed: int = 0,

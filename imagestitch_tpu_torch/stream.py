@@ -26,10 +26,10 @@ import torch
 
 from imagestitch_tpu_torch.config import PipelineConfig
 from imagestitch_tpu_torch.pipeline import (
-    _apply_exposure, _blend_resolved, _crop_valid, _generator,
-    _host_seam_masks, _needs_host_seam, _normalize_scans, _pano_canvas_shape,
-    _read_back, _seam_pair, register_views, resolve_device, set_full_precision,
-    warp_inputs, warp_scale, warp_views)
+    _apply_exposure, _blend_resolved, _generator, _host_seam_masks,
+    _needs_host_seam, _normalize_scans, _pano_canvas_shape, _read_back,
+    _seam_masks, _to_uint8, register_views, resolve_device,
+    set_full_precision, warp_inputs, warp_scale, warp_views)
 from imagestitch_tpu_torch.utils.log import StageTimer
 
 
@@ -89,24 +89,18 @@ class StreamStitcher:
                     sm = torch.as_tensor(_host_seam_masks(
                         *_read_back(warped, masks), cfg), device=dev)
                 else:
-                    sm = [masks[i] for i in range(n)]
-                    if cfg.seam.kind != "none":
-                        for i in range(n - 1):
-                            sm[i], sm[i + 1] = _seam_pair(
-                                warped[i], warped[i + 1], sm[i], sm[i + 1],
-                                cfg)
-                    sm = torch.stack(sm)
+                    sm = _seam_masks(warped, masks, cfg)
                 self._frozen["seam_masks"] = sm
             with timer.stage("blend"):
                 pano, valid = _blend_resolved(
                     warped, self._frozen["seam_masks"], masks, cfg)
-            with timer.stage("readback_crop"):
-                pano, _ = _crop_valid(*_read_back(pano, valid))
+            # the bbox whatever cfg.crop says, as the JAX stream crops
+            out = _to_uint8(pano, valid, "bbox")
         self.stages_ms = timer.summary()
         metrics = {"n_images": n, "pair_confidences": conf.tolist(),
                    "focal": float(cams.focal[0]),
                    "reachable": reachable.tolist(), **timer.counts()}
-        return np.clip(pano, 0, 255).astype(np.uint8), metrics
+        return out, metrics
 
     def frozen(self, name: str):
         """A frozen piece of the registration: "cams" (CameraParams),
@@ -124,16 +118,17 @@ class StreamStitcher:
             raise RuntimeError("call calibrate() before compose()")
         cfg = self.cfg
         timer = StageTimer(self.device)
-        with timer.stage("upload"):
-            imgs = self._upload(images)
-        with timer.stage("warp"):
-            warped, masks = self._warp(imgs)
-        with timer.stage("exposure"):
-            warped = _apply_exposure(warped, masks, cfg)
-        with timer.stage("blend"):
-            pano, valid = _blend_resolved(warped, self._frozen["seam_masks"],
-                                          masks, cfg)
-        with timer.stage("readback_crop"):
-            pano, _ = _crop_valid(pano.cpu().numpy(), valid.cpu().numpy())
+        with timer.active():
+            with timer.stage("upload"):
+                imgs = self._upload(images)
+            with timer.stage("warp"):
+                warped, masks = self._warp(imgs)
+            with timer.stage("exposure"):
+                warped = _apply_exposure(warped, masks, cfg)
+            with timer.stage("blend"):
+                pano, valid = _blend_resolved(
+                    warped, self._frozen["seam_masks"], masks, cfg)
+            # the bbox whatever cfg.crop says, as the JAX stream crops
+            out = _to_uint8(pano, valid, "bbox")
         self.stages_ms = timer.summary()
-        return np.clip(pano, 0, 255).astype(np.uint8)
+        return out

@@ -165,10 +165,10 @@ def test_stitcher_detailed_matches_jax(detailed_runs, name):
     _, mj, pj, vj = detailed_runs[name]["j"]
     pt_u8, mt, pt, vt = detailed_runs[name]["t"]
     # the JAX Stitcher's keys, and the port's LM steps inside its
-    # bundle_adjust, its DP seam stage and its counters
-    # (tests/test_torch_spans.py)
-    assert sorted(mt) == sorted({*mj, "lm_step", "seam_dp", "lm_iters",
-                                 "readback_bytes"})
+    # bundle_adjust, its DP seam stage, its readback stage and its
+    # counters (tests/test_torch_spans.py)
+    assert sorted(mt) == sorted({*mj, "lm_step", "seam_dp", "readback_crop",
+                                 "lm_iters", "readback_bytes"})
     assert mt["reachable"] == mj["reachable"] == [True] * 3
     assert abs(mt["focal"] - mj["focal"]) <= 1e-3 * mj["focal"]
     iou, mad = _held(pj, vj, pt, vt)

@@ -313,7 +313,7 @@ def test_sift_host_stitch_pair_matches_jax(stitch_runs):
     inside = {"detect", "match", "cameras", "bundle_adjust", "lm_step",
               "warp", "exposure", "seam_blend", "seam_dp", "readback_crop",
               "lm_iters", "readback_bytes", "sift_maps", "sift_refine",
-              "sift_orient", "sift_describe", "sift_kpts"}
+              "sift_orient", "sift_describe"}
     assert sorted(mt) == sorted({*mj, *inside})
     assert pt.shape == pj.shape and pt.dtype == np.uint8
     assert mt["h_valid"] and mt["kpts1"] == mj["kpts1"]

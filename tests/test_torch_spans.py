@@ -1,10 +1,12 @@
 """The spans and counters inside the port's entry points, on the CPU at
 small sizes (`utils/log`'s active `StageTimer`).
 
-- `stitch_pair` and `stitch_chain`, on the DP seam and on the host graph
-  cut, return every stage named inside them beside their own (the pair's
-  `stitch_pair_total`, or `front` and `host_seam_blend`), and the
-  counters `lm_iters` and `readback_bytes`. `lm_iters` equals the
+- `stitch_pair`, `stitch_chain` and `Stitcher.stitch`, on the DP seam and
+  on the host graph cut, return every stage named inside them beside
+  their own (the pair's `stitch_pair_total`, or `front` and
+  `host_seam_blend`; the Stitcher's `seam_blend`, with the one readback
+  and crop `readback_crop` inside), and the counters `lm_iters` and
+  `readback_bytes`. `lm_iters` equals the
   iterations `geometry/bundle._lm_minimize` ran, counted by a wrapped
   residual function (1 call before the loop, 3 per iteration: the
   residuals, the Jacobian, the trial's error).
@@ -59,6 +61,9 @@ CASES = {
         seam=tist.SeamConfig(kind="graphcut"))),
     "chain_dp": ("chain", BASE),
     "chain_graphcut": ("chain", GRAPHCUT),
+    # all pairs matched, seams along the spanning tree, the same 3 views
+    "stitcher_dp": ("stitcher", BASE),
+    "stitcher_graphcut": ("stitcher", GRAPHCUT),
 }
 
 # the stages inside an entry, by the entry's outer stages
@@ -70,6 +75,11 @@ COUNTERS = ("lm_iters", "readback_bytes")
 
 def outer_stages(case):
     kind, cfg = CASES[case]
+    if kind == "stitcher":
+        # the Stitcher's front stages stand alone, its readback is a stage
+        # of its seam_blend
+        seam = HOST_SEAM if tpipe._needs_host_seam(cfg) else DEVICE_SEAM
+        return {"seam_blend": tuple(s for s in seam if s != "seam_blend")}
     if tpipe._needs_host_seam(cfg):
         return {"front": FRONT, "host_seam_blend": HOST_SEAM}
     return {f"stitch_{kind}_total": FRONT + DEVICE_SEAM}
@@ -78,7 +88,7 @@ def outer_stages(case):
 def stage_names(case):
     outer = outer_stages(case)
     return {*outer, *(s for inner in outer.values() for s in inner),
-            "lm_step"}
+            *FRONT, "lm_step"}
 
 
 def _views(kind):
@@ -92,6 +102,8 @@ def _stitch(case, seed=3):
     views = _views(kind)
     if kind == "pair":
         return tist.stitch_pair(*views, cfg, seed=seed, device="cpu")
+    if kind == "stitcher":
+        return tist.Stitcher(cfg, device="cpu").stitch(views, seed=seed)
     return tist.stitch_chain(views, cfg, seed=seed, device="cpu")
 
 
@@ -229,7 +241,8 @@ def test_stages_nest_in_the_profiler_trace(runs, case):
         assert inside("seam_dp", "seam_blend")
 
 
-@pytest.mark.parametrize("case", ["pair_dp", "chain_graphcut"])
+@pytest.mark.parametrize("case", ["pair_dp", "chain_graphcut",
+                                  "stitcher_dp", "stitcher_graphcut"])
 def test_the_profiler_changes_no_result(runs, case):
     r = runs[case]
     assert np.array_equal(r["pano"], r["pano_p"])

@@ -170,10 +170,11 @@ def test_stitcher_matches_jax(runs, case):
     pj, mj, ej = runs[case]["j"]
     pt, mt, et = runs[case]["t"]
     thresh = runs[case]["cfg"].matcher.conf_thresh
-    # the JAX Stitcher's keys, the port's counter of the bytes read back
-    # and its DP seam stage (no bundle adjustment here;
+    # the JAX Stitcher's keys, the port's counter of the bytes read back,
+    # its DP seam stage and its readback stage (no bundle adjustment here;
     # tests/test_torch_spans.py)
-    assert sorted(mt) == sorted({*mj, "seam_dp", "readback_bytes"})
+    assert sorted(mt) == sorted({*mj, "seam_dp", "readback_crop",
+                                 "readback_bytes"})
     assert et == ej
     assert mt["n_images"] == mj["n_images"]
     assert mt["reachable"] == mj["reachable"]
@@ -220,7 +221,8 @@ def test_stitcher_topology_matches_jax(runs, case):
     thresh = ST_CFG.matcher.conf_thresh
     # the port's DP seam stage is entered once per edge of the tree
     seams = {"seam_dp"} if et else set()
-    assert sorted(mt) == sorted({*mj, *seams, "readback_bytes"})
+    assert sorted(mt) == sorted({*mj, *seams, "readback_crop",
+                                 "readback_bytes"})
     assert et == ej
     assert mt["reachable"] == mj["reachable"]
     ct, cj = np.asarray(mt["pair_confidences"]), \

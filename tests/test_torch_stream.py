@@ -44,6 +44,8 @@ from imagestitch_tpu.stream import StreamStitcher as JStream  # noqa: E402
 from imagestitch_tpu.utils import io as jio  # noqa: E402
 import imagestitch_tpu_torch as tist  # noqa: E402
 from imagestitch_tpu_torch.convert import config_from_dict  # noqa: E402
+from imagestitch_tpu_torch.pipeline import (  # noqa: E402
+    _apply_exposure, _blend_resolved, _crop_valid)
 from imagestitch_tpu_torch.utils.crop import autocrop  # noqa: E402
 
 from test_torch_chain import pan_sequence  # noqa: E402
@@ -175,8 +177,6 @@ def test_shuffled_compose_valid_matches_jax(runs):
     ts = runs["shuffled"]["ts"]
     views = _views("shuffled")
     imgs = torch.as_tensor(np.stack(views)).float()
-    from imagestitch_tpu_torch.pipeline import (_apply_exposure,
-                                                _blend_resolved)
     warped, masks = ts._warp(imgs)
     warped = _apply_exposure(warped, masks, ts.cfg)
     _, valid = _blend_resolved(warped, ts.frozen("seam_masks"), masks,
@@ -185,6 +185,24 @@ def test_shuffled_compose_valid_matches_jax(runs):
     vt = valid.numpy()
     assert vt.shape == vj.shape
     assert (vt & vj).sum() / max((vt | vj).sum(), 1) >= 0.999
+
+
+def test_compose_keeps_its_stages_and_its_pano(runs):
+    """`compose` under its active timer: the same stages as before it read
+    back through the one helper (upload, warp, exposure, blend,
+    readback_crop), and the pano of the frozen registration's canvas read
+    back, cropped to the bbox and clipped on the host, step by step."""
+    ts = runs["sequence"]["ts"]
+    views = _views("sequence")
+    pano = ts.compose(views)
+    assert set(ts.stages_ms) == {"upload", "warp", "exposure", "blend",
+                                 "readback_crop"}
+    warped, masks = ts._warp(torch.as_tensor(np.stack(views)).float())
+    warped = _apply_exposure(warped, masks, ts.cfg)
+    p, v = _blend_resolved(warped, ts.frozen("seam_masks"), masks, ts.cfg)
+    want, _ = _crop_valid(p.numpy(), v.numpy())
+    assert np.array_equal(pano, np.clip(want, 0, 255).astype(np.uint8))
+    assert np.array_equal(pano, runs["sequence"]["t"][2])
 
 
 @pytest.mark.parametrize("change,item", [
