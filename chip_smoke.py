@@ -220,6 +220,14 @@ result line is printed):
                 and seam_dp stages with the kernel and with the plain loop
                 forced; the plain loop's and the wrapper's wall; the
                 kernel alone, L2 flushed and warm.
+    crop_u8   — the crop kernel on the canvases `_to_uint8` hands it at the
+                end of the ORB pair's, the SIFT pair's and the chain
+                cell's stitches (1458 x 4032, 1944 x 4032, the chain's
+                planar multi-band canvas): one launch, the uint8 crop
+                equal to the host path's byte for byte; `_to_uint8`'s
+                wall through the kernel and with the host path forced and
+                the bytes each reads back; the kernel alone, L2 flushed
+                and warm, beside its bound.
 33. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
                 of the 1080p SIFT plane stitch, and the device's busy share
                 of one stitch of each (torch.profiler, after the timing);
@@ -238,8 +246,8 @@ result line is printed):
                 and warm, beside its bound and F.grid_sample. Last, since
                 once the profiler has traced the card, later launches cost
                 the host more.
-35. kernels   — one line {"kernels": [...]}, K1-K4, then the LM and the DP
-                seam kernels: launches on the main path (`launches`) and
+35. kernels   — one line {"kernels": [...]}, K1-K4, then the LM, the DP
+                seam and the crop kernels: launches on the main path (`launches`) and
                 on each path (`launches_by_path`, counted from 0 over the
                 path's run), error against the plain version,
                 kernel / plain / library ms and the least time the card
@@ -856,12 +864,12 @@ def phase_sift_reference(state):
 
 
 def _wrappers():
-    from imagestitch_tpu_torch.ops import (cuda_detect, cuda_dp, cuda_lm,
-                                           cuda_sift, cuda_slab_probe,
-                                           cuda_warp)
+    from imagestitch_tpu_torch.ops import (cuda_crop, cuda_detect, cuda_dp,
+                                           cuda_lm, cuda_sift,
+                                           cuda_slab_probe, cuda_warp)
     return {"detect_maps": cuda_detect, "sift_octave_maps": cuda_sift,
             "warp_batched": cuda_warp, "slab_probe": cuda_slab_probe,
-            "lm_bundle": cuda_lm, "dp_seam": cuda_dp}
+            "lm_bundle": cuda_lm, "dp_seam": cuda_dp, "crop_u8": cuda_crop}
 
 
 def _reset_counts():
@@ -881,7 +889,7 @@ def _matches(launches, want):
 
 KERNEL_KEYS = {"k1": "detect_maps", "k2": "warp_batched",
                "k3": "sift_octave_maps", "k4": "slab_probe",
-               "lm": "lm_bundle", "dp": "dp_seam"}
+               "lm": "lm_bundle", "dp": "dp_seam", "crop": "crop_u8"}
 
 
 def _record_path(state, path, launches):
@@ -927,6 +935,7 @@ def phase_main_path(state):
     _record_path(state, "main_path", launches)
     state["lm"]["launches"] = launches["lm_bundle"]
     state["dp"]["launches"] = launches["dp_seam"]
+    state["crop"]["launches"] = launches["crop_u8"]
 
     summary = _check_pairs(results, f_true, shift)
     walls = _warm_walls(lambda: stitch_pair(img1, img2))
@@ -3437,6 +3446,132 @@ def phase_dp_seam(state):
           "smi": state["smi"]})
 
 
+# the cells whose stitches end in the crop kernel, by the phase's names
+CROP_CELLS = {"pair": "default_1080p.pair_closed1",
+              "sift": "sift_plane_1080p.pair_closed1",
+              "chain": "detailed_1080p.chain4_closed1"}
+
+
+def _crop_canvases(state):
+    """The canvas and mask `_to_uint8` hands the crop kernel at the end of
+    a stitch under each of `CROP_CELLS`' configurations: the pairs' on the
+    1080p rotation pair, the chain's on one pan of its cell's pool."""
+    import torch
+    import imagestitch_tpu_torch as tist
+    from imagestitch_tpu_torch.ops import cuda_crop
+    from stitchbench import harness
+    bench = harness.load_benchmark()
+    img1, img2, _, _ = state["rot"]
+    launch = cuda_crop.crop_u8
+    out = {}
+    for name, workload in CROP_CELLS.items():
+        cell = harness.resolve_cell(bench, workload)
+        cfg = harness.pipeline_config(tist, cell["config"].get("pipeline",
+                                                               {}))
+        seen = []
+
+        def spy(pano, valid):
+            seen.append((pano.clone(), valid.clone()))
+            return launch(pano, valid)
+
+        cuda_crop.crop_u8 = spy
+        try:
+            if name == "chain":
+                item, = harness.make_pool(
+                    cell["config"], {**cell["traffic"], "pool": 1}, 24,
+                    torch.device("cuda"))
+                tist.stitch_chain(item.views, cfg)
+            else:
+                tist.stitch_pair(img1, img2, cfg)
+        finally:
+            cuda_crop.crop_u8 = launch
+        check(len(seen) == 1, f"{len(seen)} crop launches in one {name} "
+              f"stitch")
+        out[name] = seen[0]
+    return out
+
+
+def phase_crop_u8(state):
+    """The crop kernel (csrc/crop_u8.cu) on the canvases of the ORB pair,
+    the SIFT pair and the chain cells (`_crop_canvases`): one launch, the
+    uint8 crop equal to the host path's byte for byte. Then `_to_uint8`'s
+    wall through the kernel and with the host path forced (synchronized;
+    median of 20 and 5) and the bytes each reads back; last the kernel
+    alone from torch.profiler kernel events (median of 20), with L2
+    flushed by a 256 MB write and warm, beside its bound: 16 B a pixel,
+    the canvas and mask read and the uint8 canvas written once."""
+    import statistics
+    import numpy as np
+    import torch
+    from imagestitch_tpu_torch import pipeline as P
+    from imagestitch_tpu_torch.ops import cuda_crop
+    from imagestitch_tpu_torch.utils import log
+    from imagestitch_tpu_torch.utils.timing import (FLUSH_BYTES,
+                                                    kernel_split_ms)
+    takes = P._crop_takes_kernel
+    host = lambda dev: False  # noqa: E731
+
+    def to_uint8(pano, valid, forced):
+        P._crop_takes_kernel = forced
+        timer = log.StageTimer("cuda")
+        try:
+            with timer.active():
+                return P._to_uint8(pano, valid), timer.counts()
+        finally:
+            P._crop_takes_kernel = takes
+
+    out = {}
+    calls = {}
+    for name, (pano, valid) in _crop_canvases(state).items():
+        H, W = pano.shape[:2]
+        _reset_counts()
+        got, counts = to_uint8(pano, valid, takes)
+        launches = _read_counts()["crop_u8"]
+        want, host_counts = to_uint8(pano, valid, host)
+        check(launches == 1 and got.shape == want.shape
+              and np.array_equal(got, want),
+              f"crop kernel {name}: {launches} launches, crop {got.shape} "
+              f"against the host path's {want.shape}")
+        walls = {}
+        for key, forced, n in (("wrapper_ms", takes, 20),
+                               ("host_ms", host, 5)):
+            ts = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                to_uint8(pano, valid, forced)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            walls[key] = statistics.median(ts)
+        bound, by = bound_ms(H * W * (12 + 1 + 3), H * W * 3 * 2)
+        out[name] = dict(canvas=[H, W], planar=cuda_crop._planar(pano),
+                         crop=list(got.shape), launches=launches,
+                         readback_bytes=counts["readback_bytes"],
+                         host_readback_bytes=host_counts["readback_bytes"],
+                         bound_ms=bound, bound_by=by, **walls)
+        calls[name] = lambda p=pano, v=valid: cuda_crop.crop_u8(p, v)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    for name, fn in calls.items():
+        cold = kernel_split_ms(fn, N_TIMED, ("crop_u8_kernel",), flush)
+        check(cold["kernels"] == 1,
+              f"{cold['kernels']} crop kernels per readback in the trace")
+        out[name]["kernel_ms"] = cold["ms"]
+    del flush
+    for name, fn in calls.items():
+        out[name]["kernel_warm_ms"] = kernel_split_ms(
+            fn, N_TIMED, ("crop_u8_kernel",))["ms"]
+    pair = out["pair"]
+    state.setdefault("crop", {}).update(
+        name="crop_u8", route="cuda",
+        source="imagestitch_tpu_torch/csrc/crop_u8.cu", replaces=None,
+        max_abs_err=0, ms=pair["kernel_ms"], warm_ms=pair["kernel_warm_ms"],
+        plain_ms=pair["host_ms"], bound_ms=pair["bound_ms"],
+        bound_by=pair["bound_by"], library_ms=None,
+        case="the ORB pair's 1458 x 4032 canvas, L2 flushed",
+        sift=out["sift"], chain=out["chain"])
+    emit({"phase": "crop_u8", **out, "card": state["name"],
+          "smi": state["smi"]})
+
+
 def phase_stages(state):
     """Stage breakdowns of the 1080p ORB rotation stitch (default config)
     and of the 1080p SIFT plane stitch (bench.py's SIFT configuration),
@@ -3484,6 +3619,7 @@ def main(only=()) -> int:
               ("serve_path", phase_serve_path),
               ("warm_start", phase_warm_start),
               ("lm_bundle", phase_lm_bundle), ("dp_seam", phase_dp_seam),
+              ("crop_u8", phase_crop_u8),
               ("stages", phase_stages), ("kernel_times", phase_kernel_times)]
     unknown = set(only) - {name for name, _ in phases}
     if unknown:

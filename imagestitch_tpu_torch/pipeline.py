@@ -57,6 +57,7 @@ from imagestitch_tpu_torch.geometry.rotation import (
     estimate_cameras_host, estimate_cameras_spliced)
 from imagestitch_tpu_torch.matching.matcher import (match_all, match_pair,
                                                     match_pairs, pair_list)
+from imagestitch_tpu_torch.ops import cuda_crop
 from imagestitch_tpu_torch.ops.cuda_warp import KIND_IDS, warp_batched
 from imagestitch_tpu_torch.ops.image import dilate, rgb_to_gray
 from imagestitch_tpu_torch.ops.pyramid import resize_linear_mxu
@@ -543,8 +544,10 @@ CROP_ALIGN = 128
 
 
 def _read_back(*tensors) -> list[np.ndarray]:
-    """The tensors as host arrays; their bytes add to the active timer's
-    `readback_bytes`."""
+    """The tensors as host arrays, whole; their bytes add to the active
+    timer's `readback_bytes`. The host seams' inputs, and `_to_uint8`'s
+    float32 canvas and mask off the crop kernel's path (a CPU canvas, the
+    "interior" crop, a stage dump)."""
     out = [t.cpu().numpy() for t in tensors]
     log.count("readback_bytes", sum(a.nbytes for a in out))
     return out
@@ -794,13 +797,30 @@ def _generator(dev: torch.device, seed: int) -> torch.Generator:
     return gen
 
 
+def _crop_takes_kernel(device: torch.device) -> bool:
+    """Whether `_to_uint8`'s bbox crop of a canvas on `device` runs as the
+    crop kernel (`ops/cuda_crop`): on a CUDA device."""
+    return device.type == "cuda"
+
+
 def _to_uint8(pano: torch.Tensor, valid: torch.Tensor, crop: str = "bbox",
               dump=None) -> np.ndarray:
-    """The one place a device canvas becomes a host panorama: read back
-    (`_read_back`), crop (`_crop_valid`), clip to uint8, in the stage
-    `readback_crop`. `dump` (a `_StageDumper`) gets the cropped float32
-    canvas and mask as pano.npz."""
+    """The one place a device canvas becomes a host panorama, in the stage
+    `readback_crop`. A CUDA canvas with the bbox crop and no `dump` goes
+    through the crop kernel (`cuda_crop.crop_u8`): only the bbox (16 B)
+    and the cropped uint8 panorama are read back, counted in
+    `readback_bytes`, and the counter `crop_fused` adds 1. Otherwise the
+    float32 canvas and its mask are read back (`_read_back`), cropped
+    (`_crop_valid`, "bbox" or "interior") and clipped to uint8 on the
+    host; `dump` (a `_StageDumper`) gets the cropped float32 canvas and
+    mask as pano.npz. Both give the same bytes."""
     with log.stage("readback_crop"):
+        if _crop_takes_kernel(pano.device) and crop == "bbox" and \
+                dump is None:
+            out = cuda_crop.crop_u8(pano, valid)
+            log.count("readback_bytes", cuda_crop.BBOX_BYTES + out.nbytes)
+            log.count("crop_fused")
+            return out
         p, v = _crop_valid(*_read_back(pano, valid), crop)
         out = np.clip(p, 0, 255).astype(np.uint8)
     if dump is not None:
@@ -852,8 +872,9 @@ def stitch_pair(img1, img2, config: PipelineConfig | None = None,
     inside (detect, match, cameras, bundle_adjust, lm_step, warp,
     exposure; seam_blend with the DP seam's seam_dp inside, or
     seam_readback, seam and blend; readback_crop) and the counters
-    `lm_iters` and `readback_bytes`, and on the card `lm_fused` and
-    `dp_fused` (the adjustments and DP seams run as one kernel launch)."""
+    `lm_iters` and `readback_bytes`, and on the card `lm_fused`,
+    `dp_fused` and `crop_fused` (the adjustments, DP seams and bbox
+    readbacks run as one kernel launch each)."""
     return _stitch_entry(stitch_pair_front_impl, "stitch_pair_total",
                          (img1, img2), config, seed, device, draws)
 
@@ -1215,7 +1236,8 @@ class Stitcher:
                     pano, valid = _seam_and_blend(
                         warped, masks, cfg, src_w=W, src_h=H,
                         edges=tree_edges)
-                out = _to_uint8(pano, valid, cfg.crop, dump)
+                out = _to_uint8(pano, valid, cfg.crop,
+                                dump if dump_stages else None)
         metrics = {
             "n_images": n,
             "focal": float(cams.focal[0]),

@@ -18,9 +18,10 @@ from imagestitch_tpu_torch import (BlendConfig, DetectorConfig,  # noqa
                                    stitch_pairs_batched)
 from imagestitch_tpu_torch.convert import cameras_from_numpy  # noqa: E402
 from imagestitch_tpu_torch.geometry import bundle  # noqa: E402
-from imagestitch_tpu_torch.ops import (cuda_detect, cuda_dp,  # noqa: E402
-                                       cuda_lm, cuda_sift, cuda_slab_probe,
-                                       cuda_warp)
+from imagestitch_tpu_torch import pipeline  # noqa: E402
+from imagestitch_tpu_torch.ops import (cuda_crop, cuda_detect,  # noqa: E402
+                                       cuda_dp, cuda_lm, cuda_sift,
+                                       cuda_slab_probe, cuda_warp)
 from imagestitch_tpu_torch.ops import slab_probe  # noqa: E402
 from imagestitch_tpu_torch.seam import dp  # noqa: E402
 from imagestitch_tpu_torch.pipeline import (_pano_canvas_shape,  # noqa
@@ -30,6 +31,10 @@ from imagestitch_tpu_torch.utils.io import synthetic_rotation_pair  # noqa
 from imagestitch_tpu_torch.testing import (bundle_problem,  # noqa: E402
                                            near_validity_boundary)
 from imagestitch_tpu_torch.warp.warper import warp_batched_plain  # noqa
+
+from test_torch_crop_dispatch import MASKS as CROP_MASKS  # noqa: E402
+from test_torch_crop_dispatch import canvas as crop_canvas  # noqa: E402
+from test_torch_crop_dispatch import mask as crop_mask  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -1279,3 +1284,211 @@ def test_batched_dispatch_launches_one_dp_kernel_per_pair(cuda):
         pp = stitch_pairs_batched(pairs, device=cuda)[0]
     assert cuda_dp.launch_count == n0 + 8
     assert torch.equal(pk, pp)
+
+
+# the crop kernel (csrc/crop_u8.cu): the ORB pair's canvas, the SIFT
+# cell's, and two below one group of four pixels a thread
+CROP_SHAPES = ((1, 1), (7, 13), (1458, 4032), (1944, 4032))
+
+
+def _crop_both(pano, valid):
+    """(the kernel path's `_to_uint8`, its timer; the host path's) on one
+    CUDA canvas: one launch, then the host path with the dispatch off."""
+    n0 = cuda_crop.launch_count
+    timer = log.StageTimer(pano.device)
+    with np.errstate(invalid="ignore"), timer.active():
+        got = pipeline._to_uint8(pano, valid)
+    assert cuda_crop.launch_count == n0 + 1
+    with pytest.MonkeyPatch.context() as mp, np.errstate(invalid="ignore"):
+        mp.setattr(pipeline, "_crop_takes_kernel", lambda dev: False)
+        want = pipeline._to_uint8(pano, valid)
+    return got, timer, want
+
+
+@pytest.mark.parametrize("kind", CROP_MASKS)
+@pytest.mark.parametrize("shape", CROP_SHAPES)
+def test_crop_kernel_equals_the_host_path(cuda, shape, kind):
+    """`_to_uint8` through the crop kernel against the host path
+    (`_read_back`, `_crop_valid`, clip, cast) on the same CUDA canvas,
+    byte for byte: values in [-50, 300] with fractional parts, exact 0,
+    255 and 254.9999, NaN and +-inf; masks empty, one pixel, touching
+    each border, full; interleaved and (the "full" and "right" masks)
+    planar canvases. One launch, `crop_fused` 1 and `readback_bytes` 16 +
+    the crop's bytes."""
+    h, w = shape
+    planar = kind in ("full", "right")
+    pano = crop_canvas(h, w, seed=h * w + len(kind), planar=planar).to(cuda)
+    valid = crop_mask(h, w, kind, seed=h + w).to(cuda)
+    assert cuda_crop._planar(pano) == (planar and h * w > 1)
+    got, timer, want = _crop_both(pano, valid)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    assert np.array_equal(got, want), int((got != want).sum())
+    assert timer.counts() == {"crop_fused": 1,
+                              "readback_bytes": 16 + got.nbytes}
+
+
+@pytest.mark.parametrize("layout", ["canvas_offset", "mask_offset",
+                                    "transposed", "planar_odd"])
+@pytest.mark.parametrize("shape", [(97, 131), (1458, 4032)])
+def test_crop_kernel_off_its_vector_loads(cuda, layout, shape):
+    """Canvases and masks the 16-byte loads do not take, byte for byte
+    with the host path: a canvas one pixel (12 B) into its storage and a
+    mask one byte in (pixel by pixel), a canvas with its rows and columns
+    swapped (copied to interleaved first), a planar canvas of an odd
+    pixel count (pixel by pixel)."""
+    h, w = shape
+    if layout == "planar_odd":
+        h, w = h | 1, w | 1
+    pano = crop_canvas(h, w, seed=h + 1).to(cuda)
+    valid = crop_mask(h, w, "top", seed=w).to(cuda)
+    if layout == "canvas_offset":
+        pano = torch.cat([torch.zeros(3, device=cuda),
+                          pano.reshape(-1)])[3:].view(h, w, 3)
+        assert pano.data_ptr() % 16 != 0
+    elif layout == "mask_offset":
+        valid = torch.cat([torch.zeros(1, dtype=torch.bool, device=cuda),
+                           valid.reshape(-1)])[1:].view(h, w)
+        assert valid.data_ptr() % 4 != 0
+    elif layout == "transposed":
+        pano = pano.transpose(0, 1).contiguous().transpose(0, 1)
+        assert not pano.is_contiguous() and not cuda_crop._planar(pano)
+    else:
+        pano = pano.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+        assert cuda_crop._planar(pano) and h * w % 4 != 0
+    got, _, want = _crop_both(pano, valid)
+    assert np.array_equal(got, want), int((got != want).sum())
+
+
+def test_crop_kernel_runs_one_kernel_and_two_copies(cuda):
+    """Three readbacks through the crop kernel run three CUDA kernels, the
+    crop kernel, three memsets (the bbox's 16 bytes) and six device-to-
+    host copies (the bbox, the crop), and nothing else on the card. A
+    trace in a process that traced before can lose an event (as
+    `utils/timing.kernel_split_ms` allows for): every trace holds nothing
+    but these, and one of at most three traces holds them all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pano = crop_canvas(1458, 4032, seed=5).to(cuda)
+    valid = crop_mask(1458, 4032, "left", seed=6).to(cuda)
+    cuda_crop.crop_u8(pano, valid)
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                cuda_crop.crop_u8(pano, valid)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        kernels = [n for n in names if "crop_u8_kernel" in n]
+        copies = [n for n in names if "Memcpy" in n]
+        sets = [n for n in names if "Memset" in n]
+        assert len(kernels) + len(copies) + len(sets) == len(names), names
+        assert all("DtoH" in n for n in copies), names
+        counts.append((len(kernels), len(sets), len(copies)))
+        if counts[-1] == (3, 3, 6):
+            break
+    assert counts[-1] == (3, 3, 6), counts
+
+
+def test_crop_kernel_threads_share_the_staging_buffer(cuda):
+    """Twelve threads (more than the card machine's 8 cores), with a short
+    switch interval, read back canvases of twelve sizes five times each
+    through the one page-locked staging buffer, which grows meanwhile:
+    every read gives its own canvas's crop, the host path's bytes."""
+    import sys
+    import threading
+    shapes = [(97 + 131 * i, 131 + 331 * i) for i in range(12)]
+    cases = [(crop_canvas(h, w, seed=i).to(cuda),
+              crop_mask(h, w, CROP_MASKS[i % len(CROP_MASKS)],
+                        seed=i).to(cuda)) for i, (h, w) in enumerate(shapes)]
+    want = [_crop_both(p, v)[2] for p, v in cases]
+    cuda_crop._staging.clear()
+    wrong, errors = [], []
+
+    def run(i):
+        try:
+            for _ in range(5):
+                if not np.array_equal(cuda_crop.crop_u8(*cases[i]), want[i]):
+                    wrong.append(i)
+        except Exception as e:       # noqa: BLE001  (asserted below)
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(cases))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors and not wrong, (errors, wrong)
+
+
+def _crop_entries(cuda, entry):
+    """The panoramas and metrics of one entry on the cells' pools, and
+    the canvas shapes the crop kernel was handed."""
+    from stitchbench import harness
+    import imagestitch_tpu_torch as tist
+    cell = {"orb_pair": "default_1080p.pair_closed1",
+            "sift_pair": "sift_plane_1080p.pair_closed1",
+            "chain": "detailed_1080p.chain4_closed1"}.get(
+                entry, "detailed_1080p.chain4_closed1")
+    c = harness.resolve_cell(harness.load_benchmark(), cell)
+    cfg = (harness.pipeline_config(tist, c["config"].get("pipeline", {}))
+           if entry in ("orb_pair", "sift_pair", "chain")
+           else PipelineConfig())
+    n = 2 if entry.endswith("pair") else 1
+    pool = harness.make_pool(c["config"], {**c["traffic"], "pool": n},
+                             2024, cuda)
+    launch = cuda_crop.crop_u8
+    shapes = []
+
+    def spy(pano, valid):
+        shapes.append(tuple(pano.shape))
+        return launch(pano, valid)
+
+    out = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cuda_crop, "crop_u8", spy)
+        for item in pool:
+            v = item.views
+            if entry.endswith("pair"):
+                out.append(stitch_pair(v[0], v[1], cfg, seed=7))
+            elif entry == "chain":
+                out.append(tist.stitch_chain(v, cfg, seed=7))
+            elif entry == "stitcher":
+                out.append(tist.Stitcher(cfg).stitch(v, seed=7))
+            else:
+                ss = tist.StreamStitcher(cfg)
+                out.append(ss.calibrate(v, seed=7))
+                out.append((ss.compose(v), None))
+    return out, shapes
+
+
+@pytest.mark.parametrize("entry", ["orb_pair", "sift_pair", "chain",
+                                   "stitcher", "stream"])
+def test_crop_kernel_entries_equal_the_host_path(cuda, entry):
+    """Two pairs of the ORB and of the SIFT cell's pool, one pan of the
+    chain cell's (the graph cut and multi-band: a planar canvas), a
+    4-view Stitcher and a stream's calibrate and compose on that pan,
+    each through the crop kernel and with the host path forced: the same
+    uint8 panoramas byte for byte, `crop_fused` 1 against none, and
+    `readback_bytes` lower by the canvas's 13 B a pixel less 16 + the
+    crop's bytes."""
+    got, shapes = _crop_entries(cuda, entry)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pipeline, "_crop_takes_kernel", lambda dev: False)
+        want, none = _crop_entries(cuda, entry)
+    assert not none and len(shapes) == len(got) == len(want)
+    for (pk, mk), (pp, mp_), (hc, wc, _) in zip(got, want, shapes):
+        assert pk.shape == pp.shape and np.array_equal(pk, pp), entry
+        if mk is None:      # the stream's compose returns no metrics
+            continue
+        assert mk["crop_fused"] == 1 and "crop_fused" not in mp_
+        assert mp_["readback_bytes"] - mk["readback_bytes"] == \
+            hc * wc * 13 - 16 - pk.nbytes

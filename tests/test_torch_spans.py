@@ -11,8 +11,10 @@ small sizes (`utils/log`'s active `StageTimer`).
   residual function (1 call before the loop, 3 per iteration: the
   residuals, the Jacobian, the trial's error).
 - `readback_bytes` equals the bytes of the arrays read back, computed
-  from their shapes: the float32 canvas and its mask (`_to_uint8`), the
-  DP backtrack's int8 choices, the graph cut's seam inputs.
+  from their shapes: the float32 canvas and its mask (`_to_uint8` on the
+  CPU; on the card it reads back the bbox's 16 B and the uint8 crop,
+  `tests/test_torch_crop_dispatch.py`), the DP backtrack's int8 choices,
+  the graph cut's seam inputs.
 - In a CPU `torch.profiler` trace every stage is a range nested in its
   entry's outer stage, each `lm_step` in `bundle_adjust` and each
   `seam_dp` (the DP seam) in `seam_blend`.
