@@ -228,6 +228,15 @@ result line is printed):
                 wall through the kernel and with the host path forced and
                 the bytes each reads back; the kernel alone, L2 flushed
                 and warm, beside its bound.
+    stitcher_pano — the `stitcher_pano_1080p` configuration (OpenCV's
+                cv::Stitcher PANORAMA preset) through Stitcher on three
+                4-view 1080p pans of the benchmark's scenes (steps 20, 25
+                and 30 deg), with the adjusters' re-anchor on the nearest
+                rotation to view 0's start and with it reverted to the
+                start as it is: `start_defect`, the pairs matched and kept,
+                the LM launches, and the reference's focal, extent and
+                tile numbers (`stitchbench/reference.py`); the re-anchored
+                stitches within the configuration's limits.
 33. stages    — wall ms of each stage of the 1080p ORB rotation stitch and
                 of the 1080p SIFT plane stitch, and the device's busy share
                 of one stitch of each (torch.profiler, after the timing);
@@ -3572,6 +3581,61 @@ def phase_crop_u8(state):
           "smi": state["smi"]})
 
 
+def phase_stitcher_pano(state):
+    """The `stitcher_pano_1080p` configuration through Stitcher on 4-view
+    1080p pans of the benchmark's scenes, with the re-anchor on the
+    nearest rotation and with it reverted (`geometry.bundle._anchor` the
+    start as it is): each stitch's `start_defect`, pairs, LM launches and
+    the plain reference's numbers; the re-anchored ones within the
+    configuration's limits."""
+    import numpy as np
+    import torch
+    import imagestitch_tpu_torch as ist
+    from imagestitch_tpu_torch.geometry import bundle
+    from stitchbench import find, harness, reference, scenes
+    config = harness.load_json(os.path.join(
+        HERE, "stitchbench", "configs", "stitcher_pano_1080p.json"))
+    cfg = harness.pipeline_config(ist, config["pipeline"])
+    h, w = config["view_hw"]
+    f = float(config["focal_px"])
+    anchor = bundle._anchor
+    out = {}
+    for step in (20.0, 25.0, 30.0):
+        rots, half = find.part("poses", "pan").cameras((step,), 4)
+        views = scenes.render_views(rots, half, h, w, f,
+                                    np.random.default_rng(int(step)),
+                                    torch.device("cuda"))
+        ref, valid = reference.render(views, rots, f, "spherical", True)
+        host = list(views.cpu().numpy())
+        runs = {}
+        for name, fn in (("re_anchored", anchor),
+                         ("start_as_is", lambda r0: r0)):
+            bundle._anchor = fn
+            try:
+                _reset_counts()
+                pano, m = ist.Stitcher(cfg).stitch(host, seed=7)
+                torch.cuda.synchronize()
+                lm = _read_counts()["lm_bundle"]
+            finally:
+                bundle._anchor = anchor
+            got = reference.judge(pano, m["focal"], {"f": f}, ref, valid,
+                                  True)
+            runs[name] = dict(start_defect=m["start_defect"],
+                              pairs_matched=m["pairs_matched"],
+                              pairs_kept=m["pairs_kept"], lm_launches=lm,
+                              reachable=m["reachable"],
+                              pano=list(pano.shape), **got)
+        cured = runs["re_anchored"]
+        check(cured["lm_launches"] == 1 and all(cured["reachable"]),
+              f"step {step}: {cured}")
+        for key, limit in config["limits"].items():
+            check(cured[key] <= limit,
+                  f"step {step}: {key} {cured[key]} over {limit}")
+        out[f"step{int(step)}"] = runs
+    emit({"phase": "stitcher_pano", **out, "limits": config["limits"],
+          "card": state["name"], "smi": state["smi"]})
+
+
 def phase_stages(state):
     """Stage breakdowns of the 1080p ORB rotation stitch (default config)
     and of the 1080p SIFT plane stitch (bench.py's SIFT configuration),
@@ -3620,6 +3684,7 @@ def main(only=()) -> int:
               ("warm_start", phase_warm_start),
               ("lm_bundle", phase_lm_bundle), ("dp_seam", phase_dp_seam),
               ("crop_u8", phase_crop_u8),
+              ("stitcher_pano", phase_stitcher_pano),
               ("stages", phase_stages), ("kernel_times", phase_kernel_times)]
     unknown = set(only) - {name for name, _ in phases}
     if unknown:

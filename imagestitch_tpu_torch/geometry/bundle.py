@@ -63,6 +63,45 @@ def R_to_rodrigues(R: torch.Tensor) -> torch.Tensor:
     return (v * scale[..., None]).to(torch.float32)
 
 
+def rotation_defect(R: torch.Tensor) -> float:
+    """The largest ‖RᵀR − I‖_F over (..., 3, 3) matrices, in float64 on
+    the host: 0 for rotations up to float32 rounding (about 1e-7), and
+    what a rotation chained through homographies is off by."""
+    Rh = R.detach().to("cpu", torch.float64).reshape(-1, 3, 3)
+    eye = torch.eye(3, dtype=torch.float64)
+    return float(torch.linalg.matrix_norm(Rh.transpose(-1, -2) @ Rh - eye)
+                 .max())
+
+
+def nearest_rotation(R: torch.Tensor) -> torch.Tensor:
+    """The rotation nearest to each (..., 3, 3) matrix, as OpenCV's
+    BundleAdjusterBase::setUpInitialCameraParams takes it: the polar
+    factor U·Vᵀ of the SVD, negated where its determinant is -1 (a
+    homography's sign). Worked out in float64 on the host; float32 on R's
+    device."""
+    Rh = R.detach().to("cpu", torch.float64)
+    U, _, Vh = torch.linalg.svd(Rh)
+    P = U @ Vh
+    P = torch.where((torch.linalg.det(P) < 0)[..., None, None], -P, P)
+    return P.to(device=R.device, dtype=torch.float32)
+
+
+# a start rotation within this of orthonormal (‖RᵀR − I‖_F) anchors as it
+# is: the pair and chain fronts start camera 0 at the identity
+ANCHOR_DEFECT = 1e-6
+
+
+def _anchor(R0: torch.Tensor) -> torch.Tensor:
+    """The rotation that camera 0 keeps through an adjustment: its start
+    `R0` where that is a rotation, else `nearest_rotation(R0)`. The
+    N-view fronts chain view 0's start through homographies
+    (`estimate_cameras_host`), which shears it; re-anchoring every
+    adjusted camera on a sheared R0 would shear them all."""
+    if rotation_defect(R0) < ANCHOR_DEFECT:
+        return R0
+    return nearest_rotation(R0)
+
+
 def _rays(params: torch.Tensor, pts: torch.Tensor, ppx, ppy) -> torch.Tensor:
     """Unit rays of (P, T, 2) pixel points under per-pair camera params
     (P, 4) = (focal, r3). Returns (P, T, 3)."""
@@ -202,8 +241,9 @@ def bundle_adjust_ray(cameras: CameraParams, src_pts: torch.Tensor,
                       pair_valid: torch.Tensor, iters: int = 25
                       ) -> CameraParams:
     """Refine focals + rotations by minimizing sqrt(f_i·f_j)·(ray_i − ray_j)
-    over (P, T, 2) correspondences; camera 0 is re-anchored afterwards (the
-    residuals are invariant under a global rotation)."""
+    over (P, T, 2) correspondences; camera 0 is re-anchored afterwards on
+    its start rotation (`_anchor`: the residuals are invariant under a
+    global rotation)."""
     N = cameras.focal.shape[0]
     x0 = torch.cat([cameras.focal[:, None], R_to_rodrigues(cameras.R)],
                    dim=1).reshape(-1)
@@ -219,7 +259,7 @@ def bundle_adjust_ray(cameras: CameraParams, src_pts: torch.Tensor,
                                          ppx, ppy), x0, iters)
     pf = pf.reshape(N, 4)
     Rf = rodrigues_to_R(pf[:, 1:4])
-    G = cameras.R[0] @ Rf[0].T
+    G = _anchor(cameras.R[0]) @ Rf[0].T
     return cameras.replace(focal=pf[:, 0].abs(), R=G @ Rf)
 
 
@@ -231,7 +271,7 @@ def bundle_adjust_reproj(cameras: CameraParams, src_pts: torch.Tensor,
     """Refine (focal, ppx, ppy, aspect, Rodrigues rotation) per camera by
     minimizing the pixel error of the rotation-only transfer
     proj(K_j·R_jᵀ·R_i·K_i⁻¹·[p, 1]) − q over (P, T, 2) correspondences;
-    camera 0 is re-anchored afterwards."""
+    camera 0 is re-anchored afterwards on its start rotation (`_anchor`)."""
     N = cameras.focal.shape[0]
     x0 = torch.cat([cameras.focal[:, None], cameras.ppx[:, None],
                     cameras.ppy[:, None], cameras.aspect[:, None],
@@ -247,7 +287,7 @@ def bundle_adjust_reproj(cameras: CameraParams, src_pts: torch.Tensor,
                           x0, iters)
     pf = pf.reshape(N, 7)
     Rf = rodrigues_to_R(pf[:, 4:7])
-    G = cameras.R[0] @ Rf[0].T
+    G = _anchor(cameras.R[0]) @ Rf[0].T
     return cameras.replace(focal=pf[:, 0].abs(), ppx=pf[:, 1],
                            ppy=pf[:, 2], aspect=pf[:, 3].abs(), R=G @ Rf)
 

@@ -170,7 +170,10 @@ def lm_refine_homography(H: torch.Tensor, src: torch.Tensor,
                          iters: int = 10) -> torch.Tensor:
     """Fixed-iteration Levenberg–Marquardt over masked correspondences:
     damped normal equations (A + λ·diag A)·dx = Jᵀr, λ halved on an
-    accepted step and quadrupled on a rejected one."""
+    accepted step and quadrupled on a rejected one. A step the solve
+    cannot give (a singular system, or one that is not finite) is no step,
+    as in the JAX package, where the solve returns it as inf or NaN;
+    `torch.linalg.solve_ex` reports it without raising."""
     s = torch.where(H[2, 2].abs() > 1e-12, H[2, 2],
                     torch.ones_like(H[2, 2]))
     h8 = (H / s).reshape(-1)[:8]
@@ -186,8 +189,9 @@ def lm_refine_homography(H: torch.Tensor, src: torch.Tensor,
         A = J.T @ J
         g = J.T @ r
         D = torch.diag(torch.diagonal(A).clamp(min=1e-12))
-        dx = torch.linalg.solve(A + lam * D, g)
-        dx = torch.where(torch.isfinite(dx).all(), dx, torch.zeros_like(dx))
+        dx, info = torch.linalg.solve_ex(A + lam * D, g)
+        dx = torch.where((info == 0) & torch.isfinite(dx).all(), dx,
+                         torch.zeros_like(dx))
         h_try = h8 - dx
         err_try = err_of(h_try)
         accept = err_try < err

@@ -51,6 +51,7 @@ from imagestitch_tpu_torch.features import detect_batched
 from imagestitch_tpu_torch.geometry.autocalib import _masked_median
 from imagestitch_tpu_torch.geometry.bundle import (bundle_adjust,
                                                    bundle_adjust_affine,
+                                                   rotation_defect,
                                                    wave_correct)
 from imagestitch_tpu_torch.geometry.rotation import (
     affine_cameras, estimate_affine_host, estimate_cameras,
@@ -1088,10 +1089,16 @@ def register_views(imgs: torch.Tensor, cfg: PipelineConfig, draws=None,
     resolution. `draws`: optional mapping (i, j) -> (u_first, u_refit)
     RANSAC draws per pair. In SCANS mode (`cfg` normalized) the cameras
     are `_scans_cameras` (affines along the tree, the affine adjustment),
-    with no ray adjustment or wave correction. `dump` (a `_StageDumper`)
-    writes features.npz, matches.npz and cameras.npz. Returns (cams,
-    tree_edges, reachable (N,) bool, pair confidences), the last two host
-    arrays."""
+    with no ray adjustment or wave correction. Counters of the active
+    timer: `pairs_matched` (the pairs `match_all` ran), `pairs_kept`
+    (those with a homography over cfg.matcher.conf_thresh, which enter
+    the tree and the adjustment). `dump` (a `_StageDumper`) writes
+    features.npz, matches.npz and cameras.npz. Returns (cams, tree_edges,
+    reachable (N,) bool, pair confidences, start_defect), the middle two
+    host arrays; start_defect is the largest ‖RᵀR − I‖_F of the start
+    rotations handed to the ray adjustment (the chained homographies shear
+    them; `geometry.bundle._anchor` keeps the shear out of the result),
+    None where no ray adjustment runs."""
     cfg_d = cfg.detector
     dev = imgs.device
     n, H, W = imgs.shape[:3]
@@ -1122,6 +1129,7 @@ def register_views(imgs: torch.Tensor, cfg: PipelineConfig, draws=None,
     with log.stage("match"):
         pairs = pair_list(n, cfg.matcher.range_width)
         ms = match_all(feats, cfg.matcher, cfg.ransac, draws, generator)
+    log.count("pairs_matched", len(pairs))
     dump("matches", H=ms.H, num_inliers=ms.num_inliers,
          confidence=ms.confidence, h_valid=ms.h_valid,
          src_idx=ms.src_idx, dst_idx=ms.dst_idx)
@@ -1129,14 +1137,19 @@ def register_views(imgs: torch.Tensor, cfg: PipelineConfig, draws=None,
     with log.stage("cameras"):
         conf = _np(ms.confidence)
         keep = conf > cfg.matcher.conf_thresh
+        good = _np(ms.h_valid) & keep
+        log.count("pairs_kept", int(good.sum()))
+        start_defect = None
         if cfg.mode == "scans":
             cams, tree_edges, reachable = _scans_cameras(
                 ms, feats, pairs, keep, n, cfg, ws, dev)
         else:
             cams, tree_edges, reachable = estimate_cameras_host(
                 _np(ms.H), _np(ms.src_idx), _np(ms.dst_idx),
-                _np(ms.num_inliers), _np(ms.h_valid) & keep, work_sizes,
+                _np(ms.num_inliers), good, work_sizes,
                 return_tree=True, device=dev)
+            if cfg.camera.ba_refine:
+                start_defect = rotation_defect(cams.R)
 
     if cfg.mode != "scans":
         if cfg.camera.ba_refine:
@@ -1146,7 +1159,7 @@ def register_views(imgs: torch.Tensor, cfg: PipelineConfig, draws=None,
                                & ms.h_valid, cfg)
         cams = _finish_cameras(cams, cfg, ws)
     dump("cameras", focal=cams.focal, R=cams.R, ppx=cams.ppx, ppy=cams.ppy)
-    return cams, tree_edges, np.asarray(reachable), conf
+    return cams, tree_edges, np.asarray(reachable), conf, start_defect
 
 
 class Stitcher:
@@ -1177,8 +1190,9 @@ class Stitcher:
         per matched pair. `dump_stages`: a directory to write
         features.npz, matches.npz, cameras.npz, warped.npz, pano.npz and,
         for a host seam, seams.npz. Returns (pano uint8, metrics); the
-        metrics hold the stages' wall ms and the counters `lm_iters` and
-        `readback_bytes`."""
+        metrics hold the stages' wall ms, the counters `lm_iters`,
+        `readback_bytes`, `pairs_matched` and `pairs_kept`, and
+        `start_defect` (`register_views`)."""
         cfg = self.cfg
         dev = self.device
         n = len(images)
@@ -1204,8 +1218,8 @@ class Stitcher:
             imgs = torch.as_tensor(np.stack(images), device=dev).to(
                 torch.float32)
 
-            cams, tree_edges, reachable, conf = register_views(
-                imgs, cfg, draws, gen, full_sizes, dump)
+            cams, tree_edges, reachable, conf, start_defect = \
+                register_views(imgs, cfg, draws, gen, full_sizes, dump)
 
             # composite at compose_megapix: the views resized per channel,
             # the cameras scaled to match; the pano comes out at that scale
@@ -1247,6 +1261,8 @@ class Stitcher:
         }
         metrics.update(timer.summary())
         metrics.update(timer.counts())
+        if start_defect is not None:
+            metrics["start_defect"] = start_defect
         return out, metrics
 
 

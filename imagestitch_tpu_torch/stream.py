@@ -58,7 +58,8 @@ class StreamStitcher:
         freeze the registration. `draws`: optional mapping (i, j) ->
         (u_first, u_refit) RANSAC draws per matched pair. Returns the
         calibration pano (uint8) and metrics, which hold the counters
-        (`lm_iters`, `readback_bytes`) beside `stages_ms`."""
+        (`lm_iters`, `readback_bytes`, `pairs_matched`, `pairs_kept`) and
+        `start_defect` (`register_views`) beside `stages_ms`."""
         cfg = self.cfg
         dev = self.device
         set_full_precision()
@@ -66,7 +67,7 @@ class StreamStitcher:
         with timer.active():
             imgs = self._upload(images)
             n, H, W = imgs.shape[:3]
-            cams, _, reachable, conf = register_views(
+            cams, _, reachable, conf, start_defect = register_views(
                 imgs, cfg, draws, _generator(dev, seed))
 
             with timer.stage("warp"):
@@ -100,6 +101,8 @@ class StreamStitcher:
         metrics = {"n_images": n, "pair_confidences": conf.tolist(),
                    "focal": float(cams.focal[0]),
                    "reachable": reachable.tolist(), **timer.counts()}
+        if start_defect is not None:
+            metrics["start_defect"] = start_defect
         return out, metrics
 
     def frozen(self, name: str):

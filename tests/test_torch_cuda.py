@@ -1492,3 +1492,39 @@ def test_crop_kernel_entries_equal_the_host_path(cuda, entry):
         assert mk["crop_fused"] == 1 and "crop_fused" not in mp_
         assert mp_["readback_bytes"] - mk["readback_bytes"] == \
             hc * wc * 13 - 16 - pk.nbytes
+
+
+@pytest.mark.parametrize("step", [20.0, 30.0])
+def test_stitcher_pano_through_the_lm_kernel(cuda, step):
+    """The `stitcher_pano_1080p` configuration (OpenCV's PANORAMA preset)
+    on a 4-view 1080p pan of the benchmark's scenes: `register_views`
+    adjusts through one LM kernel launch from sheared starts
+    (`start_defect` over 1e-3) to rotations within 1e-5 (float32 products
+    of a few rotations), and `Stitcher.stitch` reaches every view and
+    meets the plain reference's checks at the configuration's limits."""
+    from stitchbench import find, harness, reference, scenes
+    import imagestitch_tpu_torch as tist
+    config = harness.resolve_cell(harness.load_benchmark(),
+                                  "stitcher_pano_1080p.pan4_closed1")[
+        "config"]
+    cfg = harness.pipeline_config(tist, config["pipeline"])
+    h, w = config["view_hw"]
+    f = float(config["focal_px"])
+    rots, half = find.part("poses", "pan").cameras((step,), 4)
+    views = scenes.render_views(rots, half, h, w, f,
+                                np.random.default_rng(int(step)), cuda)
+    timer = log.StageTimer(cuda)
+    with timer.active():
+        cams, _, reachable, _, start_defect = pipeline.register_views(
+            views.to(torch.float32), cfg,
+            generator=torch.Generator(cuda).manual_seed(7))
+    counts = timer.counts()
+    assert counts["lm_fused"] == 1 and counts["pairs_matched"] == 6
+    assert start_defect > 1e-3 and reachable.all()
+    assert bundle.rotation_defect(cams.R) < 1e-5
+    pano, m = tist.Stitcher(cfg).stitch(list(views.cpu().numpy()), seed=7)
+    assert all(m["reachable"]) and m["lm_fused"] == 1
+    ref, valid = reference.render(views, rots, f, "spherical", True)
+    got = reference.judge(pano, m["focal"], {"f": f}, ref, valid, True)
+    for key, limit in config["limits"].items():
+        assert got[key] <= limit, (key, got)

@@ -19,7 +19,10 @@ the JAX RANSAC draws injected.
   equal to `stitch_pair_impl` pair by pair with the same draws, bit for
   bit (the same operations in the same order).
 
-Held against JAX: h_valid and reachable equal, focal within 1e-3
+Held against JAX (with the port's re-anchor of the adjusted cameras on
+the nearest rotation to view 0's sheared start, a declared difference:
+`test_torch_bundle_options.jax_reanchored`; the port's cameras are
+rotations, checked beside): h_valid and reachable equal, focal within 1e-3
 relative, the valid masks' IoU >= 0.999 and the panos within 0.5 mean
 absolute difference where both are valid (the two libraries' float32
 trig, exp and reductions differ in the last bits, and a wave-corrected
@@ -38,6 +41,8 @@ import jax.numpy as jnp  # noqa: E402
 
 import imagestitch_tpu as jist  # noqa: E402
 from imagestitch_tpu import pipeline as jpipe  # noqa: E402
+from imagestitch_tpu import stream as jstream  # noqa: E402
+from imagestitch_tpu.geometry import bundle as jbundle  # noqa: E402
 from imagestitch_tpu.stream import StreamStitcher as JStream  # noqa: E402
 import imagestitch_tpu_torch as tist  # noqa: E402
 from imagestitch_tpu_torch.convert import config_from_dict  # noqa: E402
@@ -47,6 +52,7 @@ from imagestitch_tpu_torch.pipeline import stitch_pair_impl  # noqa: E402
 from imagestitch_tpu_torch.utils.io import (  # noqa: E402
     synthetic_pan_sequence, synthetic_rotation_pair)
 
+from test_torch_bundle_options import jax_reanchored  # noqa: E402
 from test_torch_stitcher import all_pair_draws  # noqa: E402
 
 torch.set_num_threads(2)
@@ -138,25 +144,34 @@ def test_work_megapix_registers_at_work_scale(pair_runs):
 
 @pytest.fixture(scope="module")
 def detailed_runs(tmp_path_factory):
+    """The JAX Stitcher and stream with the port's re-anchor of the
+    adjusted cameras (a declared difference: `jax_reanchored`), and the
+    port's."""
     views = synthetic_pan_sequence(3)
     draws = all_pair_draws(0, 3, 2048)
     base = tmp_path_factory.mktemp("detailed")
     out = {"views": views}
-    for name, cfg in (("detailed", DETAILED), ("composed", COMPOSED)):
-        pj, mj = jist.Stitcher(cfg).stitch(views,
-                                          dump_stages=str(base / name / "j"))
-        pt, mt = tist.Stitcher(_tcfg(cfg), device="cpu").stitch(
-            views, draws=draws, dump_stages=str(base / name / "t"))
-        dj = np.load(base / name / "j" / "pano.npz")
-        dt = np.load(base / name / "t" / "pano.npz")
-        out[name] = dict(j=(pj, mj, dj["pano"], dj["valid"]),
-                         t=(pt, mt, dt["pano"], dt["valid"]))
-    sj = JStream(DETAILED)
-    pj, mj = sj.calibrate(views)
-    st = tist.StreamStitcher(_tcfg(DETAILED), device="cpu")
-    pt, mt = st.calibrate(views, draws=draws)
-    out["stream"] = dict(j=(pj, mj, sj.compose(views)),
-                         t=(pt, mt, st.compose(views)))
+    with pytest.MonkeyPatch.context() as mp:
+        cured = jax_reanchored(jbundle.bundle_adjust)
+        mp.setattr(jpipe, "bundle_adjust", cured)
+        mp.setattr(jstream, "bundle_adjust", cured)
+        for name, cfg in (("detailed", DETAILED), ("composed", COMPOSED)):
+            pj, mj = jist.Stitcher(cfg).stitch(
+                views, dump_stages=str(base / name / "j"))
+            pt, mt = tist.Stitcher(_tcfg(cfg), device="cpu").stitch(
+                views, draws=draws, dump_stages=str(base / name / "t"))
+            dj = np.load(base / name / "j" / "pano.npz")
+            dt = np.load(base / name / "t" / "pano.npz")
+            out[name] = dict(j=(pj, mj, dj["pano"], dj["valid"]),
+                             t=(pt, mt, dt["pano"], dt["valid"]),
+                             cams=np.load(base / name / "t" / "cameras.npz"))
+        sj = JStream(DETAILED)
+        pj, mj = sj.calibrate(views)
+        st = tist.StreamStitcher(_tcfg(DETAILED), device="cpu")
+        pt, mt = st.calibrate(views, draws=draws)
+        out["stream"] = dict(j=(pj, mj, sj.compose(views)),
+                             t=(pt, mt, st.compose(views)),
+                             cams=st.frozen("cams").R.numpy())
     return out
 
 
@@ -165,15 +180,33 @@ def test_stitcher_detailed_matches_jax(detailed_runs, name):
     _, mj, pj, vj = detailed_runs[name]["j"]
     pt_u8, mt, pt, vt = detailed_runs[name]["t"]
     # the JAX Stitcher's keys, and the port's LM steps inside its
-    # bundle_adjust, its DP seam stage, its readback stage and its
-    # counters (tests/test_torch_spans.py)
+    # bundle_adjust, its DP seam stage, its readback stage, its counters
+    # and its start rotations' defect (tests/test_torch_spans.py)
     assert sorted(mt) == sorted({*mj, "lm_step", "seam_dp", "readback_crop",
-                                 "lm_iters", "readback_bytes"})
+                                 "lm_iters", "readback_bytes",
+                                 "pairs_matched", "pairs_kept",
+                                 "start_defect"})
     assert mt["reachable"] == mj["reachable"] == [True] * 3
     assert abs(mt["focal"] - mj["focal"]) <= 1e-3 * mj["focal"]
     iou, mad = _held(pj, vj, pt, vt)
     assert iou >= 0.999 and mad <= 0.5, (iou, mad)
     assert pt_u8.dtype == np.uint8 and pt_u8.std() > 20
+
+
+@pytest.mark.parametrize("name", ["detailed", "composed", "stream"])
+def test_the_detailed_cameras_are_rotations(detailed_runs, name):
+    """Beside the declared difference: the 3-view pan's start rotations
+    are sheared (view 0 is not the spanning tree's root), and the port's
+    adjusted, wave-corrected cameras are rotations within 1e-5 (float32
+    products of a few rotations)."""
+    run = detailed_runs[name]
+    R = np.asarray(run["cams"]["R"] if name != "stream" else run["cams"],
+                   np.float64)
+    defect = np.linalg.norm(np.swapaxes(R, -1, -2) @ R - np.eye(3),
+                            axis=(-2, -1)).max()
+    assert defect < 1e-5
+    if name != "stream":
+        assert run["t"][1]["start_defect"] > 1e-3
 
 
 def test_compose_megapix_and_interior_crop(detailed_runs):

@@ -171,10 +171,12 @@ def test_stitcher_matches_jax(runs, case):
     pt, mt, et = runs[case]["t"]
     thresh = runs[case]["cfg"].matcher.conf_thresh
     # the JAX Stitcher's keys, the port's counter of the bytes read back,
-    # its DP seam stage and its readback stage (no bundle adjustment here;
+    # its DP seam stage, its readback stage and its counters of the pairs
+    # matched and kept (no bundle adjustment here, so no start_defect;
     # tests/test_torch_spans.py)
     assert sorted(mt) == sorted({*mj, "seam_dp", "readback_crop",
-                                 "readback_bytes"})
+                                 "readback_bytes", "pairs_matched",
+                                 "pairs_kept"})
     assert et == ej
     assert mt["n_images"] == mj["n_images"]
     assert mt["reachable"] == mj["reachable"]
@@ -222,7 +224,8 @@ def test_stitcher_topology_matches_jax(runs, case):
     # the port's DP seam stage is entered once per edge of the tree
     seams = {"seam_dp"} if et else set()
     assert sorted(mt) == sorted({*mj, *seams, "readback_crop",
-                                 "readback_bytes"})
+                                 "readback_bytes", "pairs_matched",
+                                 "pairs_kept"})
     assert et == ej
     assert mt["reachable"] == mj["reachable"]
     ct, cj = np.asarray(mt["pair_confidences"]), \
